@@ -12,10 +12,10 @@ test:
 	$(PY) -m fem_tpu -f examples/cohesive_interface.inp
 
 test-lin:
-	$(PY) -m fem_tpu -f /root/reference/examples/lin_two_quads_qs.inp
+	$(PY) -m fem_tpu -f examples/ref/lin_two_quads_qs.inp
 
 test-elastic:
-	$(PY) -m fem_tpu -f /root/reference/examples/SNES_test/elastic/elastic_test.inp
+	$(PY) -m fem_tpu -f examples/ref/SNES_test/elastic/elastic_test.inp
 
 test-generated: examples/generated_example.inp
 	$(PY) -m fem_tpu -f examples/generated_example.inp
@@ -35,19 +35,11 @@ unit-all:
 bench:
 	$(PY) bench.py
 
+smoke:
+	$(PY) chip_smoke.py
+
 clean:
 	$(MAKE) -C native clean
 	rm -f *_output_*.vtk examples/generated_example.inp
 
-.PHONY: all native test test-lin test-elastic test-generated unit unit-slow unit-all bench warmcache clean
-
-warmcache:
-	# Pre-seed the persistent XLA compilation cache (.jax_cache) with the
-	# production solve programs at the benchmark shapes, so driver/bench
-	# cold starts pay cache hits instead of minutes of remote compiles
-	# (BASELINE.md cold_s targets). Each bench is subprocess-isolated by
-	# its own code; sizes match bench.py defaults.
-	-FEM_TPU_BENCH_BIG=1 FEM_TPU_BENCH_COH=0 FEM_TPU_BENCH_AMG=0 \
-	  timeout 2400 $(PY) -c "import bench; bench.bench_big_solve()"
-	-timeout 2400 $(PY) -c "import bench; bench.bench_amg_solve()"
-	-timeout 2400 $(PY) -c "import bench; bench.bench_cohesive_solve()"
+.PHONY: all native test test-lin test-elastic test-generated unit unit-slow unit-all bench smoke clean

@@ -1,11 +1,11 @@
-"""fem_tpu — a TPU-native finite-element framework built on JAX/XLA/Pallas.
+"""fem_tpu — a finite-element framework built on JAX/XLA.
 
 Re-implements the capabilities of the Fortran+PETSc reference solver
-(srinath-chakravarthy/FEM, mounted at /root/reference) with a TPU-first
-architecture: struct-of-arrays meshes, type-batched vmapped/Pallas element
-kernels, device-side segment-sum assembly, matrix-free preconditioned Krylov
-solvers inside jit, Newton-with-line-search for cohesive nonlinearity, and
-SPMD element sharding over a `jax.sharding.Mesh` with ICI collectives.
+(srinath-chakravarthy/FEM, see SURVEY.md) for an accelerator: struct-of-arrays
+meshes, type-batched vmapped element kernels, device-side segment-sum
+assembly, matrix-free preconditioned Krylov solvers inside jit,
+Newton-with-line-search for cohesive nonlinearity, and SPMD element sharding
+over a `jax.sharding.Mesh` with collectives.
 
 The reference's external native stack (PETSc/MUMPS/METIS/MPI/LAPACK) maps to:
   - PETSc Vec/Mat/VecScatter  -> sharded jnp arrays + segment_sum assembly
@@ -26,6 +26,9 @@ import jax
 # everywhere, KSP rtol 1e-9, displacement parity target 1e-8). Performance
 # kernels opt into float32/bfloat16 explicitly.
 jax.config.update("jax_enable_x64", True)
+# f32 contractions run at full f32 precision: a GPU otherwise may run them in
+# TF32 (10-bit mantissa), which silently weakens every f32 inner solve.
+jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"
 

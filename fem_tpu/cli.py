@@ -17,7 +17,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="fem_tpu", description="TPU-native FEM solver (defmod-compatible)"
+        prog="fem_tpu", description="JAX FEM solver (defmod-compatible)"
     )
     ap.add_argument("-f", dest="input_file", help="input .inp deck")
     ap.add_argument(
@@ -74,8 +74,10 @@ def main(argv=None) -> int:
     from fem_tpu.io import vtk
     from fem_tpu.models import problem as problem_mod
     from fem_tpu.solver import stepper
-
+    from fem_tpu.utils import jaxcache
     from fem_tpu.utils.timing import device_trace
+
+    jaxcache.enable()
 
     log("Reading input ...")
     import os

@@ -18,7 +18,7 @@ class Config:
 
     Attributes:
       dtype: numpy-style dtype string for device arrays ("float64" for parity
-        with the reference's real(8); "float32"/"bfloat16" for TPU speed).
+        with the reference's real(8); "float32"/"bfloat16" for speed).
       solver: "direct" (dense factorization; the MUMPS-equivalent for small n),
         "cg" (matrix-free Jacobi-preconditioned CG; SPD elastic path), or
         "auto" (direct below `direct_threshold` DOFs, else cg).

@@ -5,7 +5,7 @@ structured quad strip with 2 pinned corner nodes and 2 end forces, written in
 the legacy 7-count deck format, make_example.F90:33-140). The builders below
 it construct `Problem` objects directly in numpy — no text round-trip — for
 large-scale tests and benchmarks (e.g. the ~1M-DOF hex8 cantilever of
-BASELINE.md).
+BASELINE.json configs[4]).
 """
 
 from __future__ import annotations
@@ -294,7 +294,7 @@ def hex_box_problem(
     seed: int = 0,
 ) -> Problem:
     """3D hex8 cantilever: clamped at x=0, z-directed point loads on the free
-    x=lx face. The ~1M-DOF benchmark geometry (BASELINE.md).
+    x=lx face. The ~1M-DOF benchmark geometry (BASELINE.json configs[4]).
 
     jitter > 0 perturbs every INTERIOR node by jitter*h*U(-1/2, 1/2) per
     axis (boundary nodes stay put so the BC/load selections hold). This

@@ -2,26 +2,26 @@
 
 The C++ engine covers the reference's host-side native roles — deck parsing
 (m_io.F90), METIS partitioning (m_io.F90:137), element (re)ordering — with
-TPU-appropriate replacements (flat-array parser, Morton ordering, RCB
-partitioning). Falls back cleanly: `available()` is False when the library
-hasn't been built, and every caller has a pure-Python path.
-
-Build with `make -C native` (no pybind11 in this image; plain C ABI).
+flat-array replacements (flat-array parser, Morton ordering, RCB
+partitioning). The library is built from the committed sources at first use
+(`make -C native`, plain C ABI), on the machine that loads it. Falls back
+cleanly: `available()` is False when no compiler can build it, and every
+caller has a pure-Python path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-
+import subprocess
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
+_NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
-    "libfemmesh.so",
 )
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libfemmesh.so")
 
 _MAX_NODES = 8
 _TYPE_NAMES = ("tri", "qua", "tet", "hex", "coh")
@@ -68,9 +68,30 @@ class _FemDeck(ctypes.Structure):
 _lib = None
 
 
+def build(name: str = "libfemmesh.so") -> str | None:
+    """Path of native/<name>, built with `make -C native` if it is missing.
+
+    The build writes a per-process temporary name and renames it into place,
+    so concurrent first uses (parallel test workers) never load a partly
+    written library. Returns None when the build fails (no compiler)."""
+    path = os.path.join(_NATIVE_DIR, name)
+    if os.path.exists(path):
+        return path
+    tmp = f"{name}.tmp{os.getpid()}"
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", _NATIVE_DIR, tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(os.path.join(_NATIVE_DIR, tmp), path)
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return path
+
+
 def _load():
     global _lib
-    if _lib is None and os.path.exists(_LIB_PATH):
+    if _lib is None and build() is not None:
         lib = ctypes.CDLL(_LIB_PATH)
         lib.fem_parse_deck_file.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(_FemDeck)

@@ -3,7 +3,7 @@
 Replaces the reference's array-of-structs `element` type and its global mesh
 state (m_elems.F90:6-12, m_global.F90:17-44) with type-batched numpy arrays:
 one `Block` per element type holding a dense (ne, nn) connectivity. This is
-the layout that vmapped/Pallas kernels and segment-sum assembly consume.
+the layout that vmapped element kernels and segment-sum assembly consume.
 
 Everything here is host-side numpy; `fem_tpu.models.system.System` moves it to
 device with the requested dtype/sharding.

@@ -1,6 +1,6 @@
 """Device-side FEM system: assembly, RHS, cohesive residual, stress recovery.
 
-This is the TPU-native replacement for m_global.F90's PETSc-centric global
+This is the array-first replacement for m_global.F90's PETSc-centric global
 layer. The reference scatters per-element dense matrices into a distributed
 MatAIJ (main.F90:157-171) and exchanges ghosts through VecScatter
 (m_global.F90:549-564); here the whole system lives in device arrays and
@@ -74,9 +74,8 @@ class System:
             et = b.et
             conn = jnp.asarray(b.conn)
             # Gather element coordinates on the HOST: an eager 10M+-index
-            # device gather at setup is slow on TPU and has wedged the
-            # runtime (irregular gather is the TPU weak spot; setup is
-            # host-side work per SURVEY.md §2c).
+            # device gather at setup gains nothing (setup is host-side work
+            # per SURVEY.md §2c).
             ecoords = jnp.asarray(p.coords[b.conn], dtype=dtype)
             edofs = stiff_ops.element_dofs(et, conn)
             E = jnp.asarray(mats[b.mat, 0], dtype=dtype)
@@ -125,10 +124,10 @@ class System:
         """Continuum (non-cohesive) blocks with lazily-built per-element
         data. need_ke=False skips materializing the (ne, ndof, ndof)
         element stiffness: stress recovery / creep-state callers only need
-        D, and the k_e einsum's tiny trailing dims tile-pad ~32x on TPU —
-        at 207k 2D elements the pointless compile OOMed the chip
-        (23 GB > 15.75 GB HBM) after the matrix-free Newton solve had
-        already finished without ever needing k_e."""
+        D, and the (ne, ndof, ndof) k_e batch is large (its tiny trailing
+        dims can also be padded by the compiler) — at 207k 2D elements it
+        once ran a device out of memory after the matrix-free Newton solve
+        had already finished without ever needing k_e."""
         out = []
         for name, e in self.blocks.items():
             if e["is_coh"]:
@@ -304,17 +303,15 @@ class System:
         b = self.problem.blocks[name]
         visc = jnp.asarray(self._mats[np.asarray(b.mat), 2], dtype=self.dtype)
         expn = jnp.asarray(self._mats[np.asarray(b.mat), 3], dtype=self.dtype)
-        from fem_tpu.solver import direct
-
         D = e["D"] if "D" in e else dmat_ops.dmat(e["E"], e["nu"], self.pdim)
-        S = direct.inv_in_jit(D)  # (ne, cpdim, cpdim); f64-safe on TPU
+        S = jnp.linalg.inv(D)  # (ne, cpdim, cpdim)
         if self.pdim == 2:
             beta = dmat_ops.creep_beta2d(sigma_ip, visc[:, None], expn[:, None])
             betad = dmat_ops.creep_betad2d(sigma_ip, visc[:, None], expn[:, None])
         else:
             beta = dmat_ops.creep_beta3d(sigma_ip, visc[:, None], expn[:, None])
             betad = dmat_ops.creep_betad3d(sigma_ip, visc[:, None], expn[:, None])
-        D_eff = direct.inv_in_jit(S[:, None, :, :] + self.dt * betad)
+        D_eff = jnp.linalg.inv(S[:, None, :, :] + self.dt * betad)
         return D_eff, beta
 
     def creep_force(self, creep_state):
@@ -388,9 +385,10 @@ class System:
         sums = jnp.zeros((self.nnds, self.cpdim), dtype=self.dtype)
         counts = jnp.zeros(self.nnds, dtype=self.dtype)
         # Element-sliced: the per-element B/stress intermediates carry tiny
-        # trailing dims that tile-pad ~40x on TPU, so one fused pass over a
-        # few-hundred-k-element block can demand more HBM than the chip has
-        # (the k_e sibling of this blowup OOMed at 207k 2D elements). Slices
+        # trailing dims that a compiler may pad, so one fused pass over a
+        # few-hundred-k-element block can demand more device memory than
+        # the card has (the k_e sibling of this blowup ran out at 207k 2D
+        # elements). Slices
         # bound the padded temp to ~2 GB; at most two program shapes (full
         # slice + remainder) compile.
         CHUNK_E = 65536

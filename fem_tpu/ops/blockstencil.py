@@ -14,12 +14,11 @@ MUMPS workhorse, /root/reference/src/main.F90:157-171,354-390):
      gather/scatter matvec (its floor is the XLA gather issue rate, see
      DESIGN.md roofline).
 
-Why it matters on TPU: the tier-3 matvec at 527k dofs costs ~15 ms, bounded
-by ~2.7M node-row gathers (input + assembly gathers at the measured XLA
-gather rate), while its arithmetic is ~0.4 ms and its streaming traffic
-<1 ms.  Tier 2 replaces every gather with a static slice of the padded
+Why it matters: the tier-3 matvec is bounded by its node-row gathers
+(input + assembly gathers), while its arithmetic and streaming traffic are
+small. Tier 2 replaces every gather with a static slice of the padded
 solution grid: traffic = one pass over the 27*pdim^2 coefficient blocks
-(171 MB f32 at 527k dofs -> ~0.3 ms roofline), fully fusable by XLA.
+(171 MB f32 at 527k dofs), fully fusable by XLA.
 
 Detection is EXACT and topology-only: from the assembled CSR, infer the
 lattice strides from node 0's neighbor set, then verify that EVERY nonzero
@@ -154,26 +153,18 @@ def build(A, pdim: int, dims: Tuple[int, ...],
 def _apply_padded(vals, up, dims, pdim):
     """The 27 (or 9) static-shifted-slice apply on an ALREADY-padded grid
     up: (pdim, *(d+2 for d in dims)); vals: (noffs, pdim, pdim, *dims).
-    The tiny pdim x pdim block contraction is UNROLLED elementwise
-    (tiny-dim einsums tile-pad catastrophically on TPU — see
+    The shifted slices are stacked and the tiny (offset, pdim) block
+    contraction is one broadcast multiply + sum, which XLA fuses into a
+    single reduction: a few ops per matvec, so the solver programs that
+    inline dozens of matvecs stay small enough to compile quickly (an
+    einsum would lower to a dot_general over tiny dims — see
     operator.block_force)."""
-    nd = len(dims)
-    acc = [None] * pdim
-    idx = 0
-    for offs in np.ndindex(*(3,) * nd):
-        sl = (slice(None),) + tuple(
-            slice(o, o + d) for o, d in zip(offs, dims)
-        )
-        us = up[sl]  # (pdim, *dims)
-        w = vals[idx]  # (pdim, pdim, *dims)
-        for pp in range(pdim):
-            t = None
-            for qq in range(pdim):
-                term = w[pp, qq] * us[qq]
-                t = term if t is None else t + term
-            acc[pp] = t if acc[pp] is None else acc[pp] + t
-        idx += 1
-    return jnp.stack(acc, axis=0)
+    del pdim
+    us = jnp.stack([
+        up[(slice(None),) + tuple(slice(o, o + d) for o, d in zip(offs, dims))]
+        for offs in np.ndindex(*(3,) * len(dims))
+    ])  # (noffs, pdim, *dims)
+    return jnp.sum(vals * us[:, None], axis=(0, 2))
 
 
 def matvec_g(op: BlockStencilOperator, u_g):
@@ -204,13 +195,12 @@ def matvec(op: BlockStencilOperator, u):
 # this module can do the genuinely scalable thing instead: shard NODE ROW
 # SLABS of the leading lattice axis across the device mesh — each matvec
 # then communicates exactly TWO boundary node planes via ppermute (the
-# classical halo exchange, riding ICI), mirroring the constant-stencil
+# classical halo exchange over the interconnect), mirroring the constant-stencil
 # halo path (structured.halo_matvec) the r2 VERDICT asked to productionize
 # (weak #6). Coefficient slabs are disjoint (blocks are row-rooted), so
-# only the u planes ever move. TPU-native analogue of the reference's
+# only the u planes ever move. The analogue of the reference's
 # per-iteration ghost scatter over the MPI partition
-# (/root/reference/src/m_global.F90:549-564) under the distributed solve
-# (/root/reference/src/main.F90:354-390).
+# (m_global.F90:549-564) under the distributed solve (main.F90:354-390).
 
 
 def pad_rows(op: BlockStencilOperator, nd: int) -> BlockStencilOperator:
@@ -270,7 +260,7 @@ def u_from_slabs(ub):
 def halo_masks(nd: int, dtype):
     """Eager float masks zeroing the wrap-around ppermute planes at the
     physical boundary devices (in-jit bool->float casts are a documented
-    miscompile on this backend — CLAUDE.md #3)."""
+    miscompile — DESIGN.md #3)."""
     ml = np.ones(nd, dtype=np.float64)
     ml[0] = 0.0  # device 0 has no left neighbor
     mr = np.ones(nd, dtype=np.float64)
@@ -286,10 +276,7 @@ def halo_matvec_g(op: BlockStencilOperator, vals_slabs, u_slabs, mesh,
     their leading device dimension; returns the product in the same slab
     layout. `op` supplies dims/pdim metadata only (use the pad_rows'd
     operator); ml/mr come from halo_masks."""
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     axis = axis or mesh.axis_names[0]

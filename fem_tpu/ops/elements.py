@@ -1,6 +1,6 @@
 """Element library: registry, quadrature, shape functions — as static tables.
 
-TPU-native re-design of the reference element library (m_elems.F90). The
+Array-first re-design of the reference element library (m_elems.F90). The
 reference dispatches on a runtime eltype string and memoizes shape functions
 into ragged Fortran arrays (`shapeFuncMem`, m_elems.F90:32). Here every element
 type is a frozen set of *host-side numpy tables* (quadrature points/weights, N

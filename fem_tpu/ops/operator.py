@@ -7,17 +7,15 @@ bloats compile payloads (hundreds of MB at 1M DOF) and defeats donation. With
 `FusedOperator` registered as a pytree, `jax.jit(solve)(op, F, ...)` traces
 once and streams the arrays as buffers.
 
-Why element-batch-LAST: TPU tiles the trailing two array dimensions to
-(8, 128) vregs. Element-batch-first layouts like (ne, nip, pdim, nn) put tiny
-dims (3, 8) in the tiled positions — a ~40x padding waste on every
-intermediate. Storing (nip, pdim, nn, ne) keeps the huge ne axis in the lane
-dimension, so every elementwise op runs at full VPU width. Measured ~5x on
-the matvec vs the ne-first layout.
+Why element-batch-LAST: element-batch-first layouts like (ne, nip, pdim, nn)
+put tiny dims (3, 8) in the fastest-varying positions. Storing
+(nip, pdim, nn, ne) keeps the huge ne axis contiguous, so every elementwise op
+streams long contiguous rows.
 
 The operator applies K @ u without materializing element stiffness matrices:
 gather (nn*pdim, ne) -> fused isotropic stress kernel -> sorted segment-sum
 scatter. This replaces the reference's assembled PETSc MatAIJ SpMV
-(main.F90:157-171 + MatMult inside KSP) with TPU-idiomatic on-the-fly
+(main.F90:157-171 + MatMult inside KSP) with on-the-fly
 compute: ~5k flops vs ~2.3KB of matrix traffic per hex8 element.
 """
 
@@ -59,14 +57,14 @@ class FusedOperator:
     gather_idx: jax.Array  # (ndof, K) int32
     # ROW-gather schedule (the production one): indices address pdim-wide
     # NODE ROWS instead of scalar dofs — 3x fewer indices and row-
-    # vectorized fetches, measured 5.7x faster gathers on TPU. Entry rows
+    # vectorized fetches. Entry rows
     # are the concatenated per-(block, corner, element) force rows in
     # a-major order; the trailing row is the zero slot.
     row_gather_idx: jax.Array  # (nnds, Kn) int32
     # Per-block (corner, element) assembly coordinates, pre-transposed to
     # (Kn_b, nnds): the per-block force tensor (pdim, nn, ne+1) is gathered
     # directly at [:, row_a, row_e] — no (nn, ne) -> (nn*ne) lane/sublane
-    # relayout (which cost ~30 ms at 527k dofs). Padding points at
+    # relayout. Padding points at
     # (a=0, e=ne), the zero column.
     row_a: Tuple[jax.Array, ...]
     row_e: Tuple[jax.Array, ...]
@@ -176,9 +174,8 @@ def block_force(b: FusedBlock, u):
 
     The tiny-dim contractions are UNROLLED as elementwise multiply-adds
     (ne in lanes) instead of einsum: XLA lowers einsums over 8/3-sized
-    contraction dims to dot_generals with tile-padded intermediates — a
-    bf16[8,8,3,8,ne] buffer padded from 487MB to 7.6GB (7.5% utilization)
-    OOM'd the 527k-dof AMG solve, and the MXU pass also rounds to bf16.
+    contraction dims to dot_generals whose tiny dims can be padded into
+    buffers many times the data's size.
     """
     nip, pdim, nn, ne = b.dNx.shape
     un = u[b.edofs_t].reshape(nn, pdim, ne)  # (a, q, e)
@@ -216,7 +213,7 @@ def block_force_un(b: FusedBlock, un):
 # Which schedule matvec() uses: "rows" (node-row gathers in component-major
 # layout — fewer indices, well-tiled fetches) or "ell" (scalar-dof ELL
 # gathers — the conservative fallback). Module-level switch read at trace
-# time, like structured.MATVEC_IMPL.
+# time.
 MATVEC_IMPL = "rows"
 
 
@@ -231,18 +228,17 @@ def matvec_cm(op: FusedOperator, u2c):
     """K @ u in COMPONENT-MAJOR layout: u2c, out (pdim, nnds).
 
     The node-ROW-gather schedule: gathers fetch pdim-wide node rows (3x
-    fewer indices than scalar-dof gathers — measured 5.7x faster per
-    gather at 527k dofs), and every gather result keeps a LARGE axis in
+    fewer indices than scalar-dof gathers), and every gather result keeps
+    a LARGE axis in
     the trailing (lane) position:
       - input:  u2c[:, conn_t] -> (pdim, nn, ne)          [ne lanes]
       - output: fpad (pdim, nn, ne+1)[:, row_a, row_e] ->
                 (pdim, Kn, nnds)                          [nnds lanes]
-    Two hard-won layout rules: (1) a gather whose trailing dims are tiny
-    ((Kn, pdim) = (8, 3), 42x tile padding) WEDGED the TPU worker — never
-    materialize that shape; (2) the (nnds, pdim) <-> (pdim, nnds)
-    transposes cost ~35 ms inside a fused 527k-dof program (16 ms vs 51 ms
-    measured) — solvers should carry component-major state end-to-end and
-    only the flat-API wrapper pays them.
+    Two layout rules: (1) never materialize a gather whose trailing dims
+    are tiny ((Kn, pdim) = (8, 3)); (2) the (nnds, pdim) <-> (pdim, nnds)
+    transposes are full passes over the vector — solvers should carry
+    component-major state end-to-end and only the flat-API wrapper pays
+    them.
     """
     out_c = None
     for b, ra, re_ in zip(op.blocks, op.row_a, op.row_e):

@@ -1,11 +1,10 @@
 """Batched isoparametric element kernels: B-matrix, stiffness, stress.
 
-TPU-native replacement for the reference's per-element hot loops
+Batched replacement for the reference's per-element hot loops
 (FormElKE m_local.F90:21-67, CalcElStress m_local.F90:93-123, BMat
 m_local.F90:148-171, FormdNdetJ m_local.F90:175-189). Instead of looping over
 heterogeneous element structs, each element *type* is processed as one batched
-tensor contraction over all its elements and integration points — the shape
-XLA tiles onto the MXU.
+tensor contraction over all its elements and integration points.
 
 All functions take a leading element batch axis:
   ecoords: (ne, nn, pdim)   node coordinates gathered per element
@@ -169,12 +168,11 @@ def _det_inv_batchlast(J):
 def element_stiffness_lame_batchlast(et: ElementType, ecoords_l, lam, mu):
     """element_stiffness_lame with the element batch in the LANE dimension.
 
-    TPU tiles the trailing two array dims to (8,128); the batch-first kernel
-    puts tiny (3, 8) dims there and wastes ~40x of every vreg. This variant
-    takes ecoords_l: (pdim, nn, ne) and returns (nn, pdim, nn, pdim, ne) —
-    measured ~6x faster on v5e at 131k hex8 elements. The H contraction is a
-    broadcast-multiply-sum over nip so XLA emits full-lane VPU code instead
-    of degenerate dot_generals.
+    The batch-first kernel puts tiny (3, 8) dims in the trailing (fastest)
+    array dims; this variant takes ecoords_l: (pdim, nn, ne) and returns
+    (nn, pdim, nn, pdim, ne), so the huge element batch is the contiguous
+    dimension. The H contraction is a broadcast-multiply-sum over nip so
+    XLA emits elementwise code instead of degenerate dot_generals.
     """
     dN = jnp.asarray(et.dN, dtype=ecoords_l.dtype)  # (nip, pdim, nn)
     w = jnp.asarray(et.weights, dtype=ecoords_l.dtype)
@@ -192,77 +190,6 @@ def element_stiffness_lame_batchlast(et: ElementType, ecoords_l, lam, mu):
     ke = jnp.transpose(term, (1, 0, 3, 2, 4))  # (a,p,b,q,e)
     tr = jnp.einsum("kakbe->abe", H)
     eye = jnp.eye(et.pdim, dtype=ecoords_l.dtype)
-    ke = ke + mu * tr[:, None, :, None, :] * eye[None, :, None, :, None]
-    return ke
-
-
-def element_stiffness_lame_batchlast_v2(et: ElementType, ecoords_l, lam, mu):
-    """element_stiffness_lame_batchlast with the remaining tiny-dim
-    contractions restructured for the TPU (same math, same (nn, pdim, nn,
-    pdim, ne) result):
-
-    - The Jacobian einsum becomes pdim REAL matmuls (nip*pdim, nn) @
-      (nn, ne) — the huge element batch rides the MXU's N dimension
-      instead of a tiny-dim dot_general (which tile-pads, see
-      operator.block_force).
-    - The 9-divide batched 3x3 inverse collapses to ONE reciprocal per
-      integration point: with G = adj(J)^T dN (adjugate, unrolled over the
-      3-term q contraction), the H integrand s*dNx*dNx = (w/detJ)*G*G —
-      both detJ factors from dNx = adj^T dN / detJ cancel against
-      s = w*detJ except a single w/detJ weight.
-
-    MEASURED (r3, one v5e chip, 131072 hex8 f32): v1 3.6-3.7 ms, v2
-    4.1-4.4 ms, and a v1-einsum-J + v2-adjugate hybrid 4.5 ms
-    (tools/stiff_ab.py, tools/stiff_v3.py). The "obvious" MXU/division
-    fixes LOSE on this backend — the v1 schedule's tiny einsums and
-    stacked closed-form inverse fuse better than restructured forms, so
-    v1 stays the production kernel and this variant documents the
-    measured dead end.
-
-    Mirrors FormElKE (m_local.F90:21-67) exactly like the v1 kernel.
-    """
-    dN = jnp.asarray(et.dN, dtype=ecoords_l.dtype)  # (nip, pdim, nn)
-    w = jnp.asarray(et.weights, dtype=ecoords_l.dtype)
-    pdim, nn, ne = ecoords_l.shape
-    nip = dN.shape[0]
-    dN2 = dN.reshape(nip * pdim, nn)
-    # j[p][d]: (nip, ne) Jacobian entries, J[p,d] = sum_a dN[i,p,a] X[a,d]
-    jc = [(dN2 @ ecoords_l[d]).reshape(nip, pdim, ne) for d in range(pdim)]
-    j = [[jc[d][:, p, :] for d in range(pdim)] for p in range(pdim)]
-    if pdim == 2:
-        det = j[0][0] * j[1][1] - j[0][1] * j[1][0]
-        adj = [[j[1][1], -j[0][1]], [-j[1][0], j[0][0]]]
-    elif pdim == 3:
-        a00 = j[1][1] * j[2][2] - j[1][2] * j[2][1]
-        a10 = j[1][2] * j[2][0] - j[1][0] * j[2][2]
-        a20 = j[1][0] * j[2][1] - j[1][1] * j[2][0]
-        det = j[0][0] * a00 + j[0][1] * a10 + j[0][2] * a20
-        adj = [
-            [a00, j[0][2] * j[2][1] - j[0][1] * j[2][2],
-             j[0][1] * j[1][2] - j[0][2] * j[1][1]],
-            [a10, j[0][0] * j[2][2] - j[0][2] * j[2][0],
-             j[0][2] * j[1][0] - j[0][0] * j[1][2]],
-            [a20, j[0][1] * j[2][0] - j[0][0] * j[2][1],
-             j[0][0] * j[1][1] - j[0][1] * j[1][0]],
-        ]
-    else:
-        raise ValueError(f"pdim must be 2 or 3, got {pdim}")
-    # G[i,p,a,e] = sum_q adj[p][q][i,e] * dN[i,q,a] = detJ * dNx[i,p,a,e]
-    G = jnp.stack(
-        [sum(adj[p][q][:, None, :] * dN[:, q, :, None] for q in range(pdim))
-         for p in range(pdim)],
-        axis=1,
-    )  # (nip, pdim, nn, ne)
-    r = w[:, None] / det  # the ONLY division: s/detJ^2 = w/detJ
-    Gr = G * r[:, None, None, :]
-    # H[p,a,q,b,e] = sum_i (w/detJ) G[i,p,a] G[i,q,b]
-    H = jnp.sum(
-        Gr[:, :, :, None, None, :] * G[:, None, None, :, :, :], axis=0
-    )
-    term = lam * H + mu * jnp.transpose(H, (2, 1, 0, 3, 4))  # H[q,a,p,b]
-    ke = jnp.transpose(term, (1, 0, 3, 2, 4))  # (a,p,b,q,e)
-    tr = jnp.einsum("kakbe->abe", H)
-    eye = jnp.eye(pdim, dtype=ecoords_l.dtype)
     ke = ke + mu * tr[:, None, :, None, :] * eye[None, :, None, :, None]
     return ke
 

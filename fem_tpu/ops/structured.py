@@ -1,20 +1,20 @@
-"""Structured-grid (stencil) elastic operator: no gathers, pure MXU + shifts.
+"""Structured-grid (stencil) elastic operator: no gathers, matmuls + shifts.
 
-On TPU, irregular gather/scatter over millions of indices is the bottleneck
-of unstructured matrix-free FEM (and can wedge the TPU runtime). For meshes
+Irregular gather/scatter over millions of indices is the bottleneck of
+unstructured matrix-free FEM. For meshes
 that ARE structured boxes — including the ~1M-DOF hex8 benchmark geometry
 from BASELINE.md — the element gather is 8 contiguous array slices, the
 scatter-add is 8 contiguous `.at[slice].add`s, and because every element
 shares the same Jacobian the element kernel collapses to ONE large matmul:
 
     f_e = k_ref @ u_e   for all elements at once:
-    (ne, 24) @ (24, 24) — ne in the MXU M dimension.
+    (ne, 24) @ (24, 24) — ne in the matmul's M dimension.
 
 Heterogeneous isotropic materials are supported through the linearity of k_e
 in the Lame parameters: k_e = lam_e K_lam + mu_e K_mu, two matmuls plus
 elementwise scaling by the (lam, mu) fields.
 
-This is the TPU answer to "METIS partitioning quality matters" (SURVEY.md
+This is the answer here to "METIS partitioning quality matters" (SURVEY.md
 §2b): for structured problems, partitioning disappears entirely — the grid
 shards along its leading axis and the only communication is a halo exchange
 (here: psum of boundary planes when sharded).
@@ -23,16 +23,14 @@ shards along its leading axis and the only communication is a halo exchange
 from __future__ import annotations
 
 import dataclasses
-import functools
-import itertools
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-# TPU MXU f32 matmuls default to bf16 passes (~1e-3 relative error) — enough
-# to stall CG. All stencil matmuls force full fp32 accumulation.
+# Reduced-precision f32 matmuls (bf16 or TF32 passes, ~1e-3 relative error)
+# are enough to stall CG. All stencil matmuls force full fp32 accumulation.
 _HIGH = jax.lax.Precision.HIGHEST
 
 from fem_tpu.ops import elements as element_lib
@@ -68,11 +66,6 @@ class StencilOperator:
     lam: jax.Array
     mu: jax.Array
     shape: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
-    # Matvec schedule carried BY the operator: "auto" defers to the module
-    # switch MATVEC_IMPL; "planes"/"matmul" pin it. Production paths pin
-    # "planes" via with_impl() instead of mutating the global (which leaked
-    # the schedule into every later solve in the process, ADVICE r2).
-    impl: str = dataclasses.field(default="auto", metadata=dict(static=True))
 
     @property
     def pdim(self) -> int:
@@ -94,12 +87,6 @@ class StencilOperator:
             lam=self.lam.astype(dtype),
             mu=self.mu.astype(dtype),
         )
-
-    def with_impl(self, impl: str) -> "StencilOperator":
-        return dataclasses.replace(self, impl=impl)
-
-    def _impl(self) -> str:
-        return MATVEC_IMPL if self.impl == "auto" else self.impl
 
 
 def build(cell_sizes, node_shape, lam, mu, dtype=jnp.float64) -> StencilOperator:
@@ -207,48 +194,24 @@ def _corner_slices(shape, off):
     return tuple(slice(o, o + n - 1) for o, n in zip(off, shape))
 
 
-# Which schedule matvec() uses for SCALAR-material operators:
-#   "matmul" — the (ne, nn*pdim) gather + MXU matmul + scatter-add form
-#   "planes" — the fused 27/9-point component-planes stencil (matvec_planes)
-# Read at TRACE time (module-level switch, not a pytree field, so existing
-# operator pytrees keep their treedef). Heterogeneous fields always use the
-# matmul form.
-MATVEC_IMPL = "matmul"
-
-
 def matvec(op: StencilOperator, u):
-    """K @ u — dispatches on op.impl (falling back to MATVEC_IMPL) for
-    scalar materials."""
-    if op._impl() == "planes" and op.lam.ndim == 0:
-        return matvec_planes(op, u)
-    if op._impl() == "planes27" and op.lam.ndim == 0:
-        return matvec_planes27(op, u)
-    return matvec_matmul(op, u)
+    """K @ u via 8 (or 4) shifted slices + one or two big matmuls (the
+    matmul schedule, which every solver path runs)."""
+    return _matmul_core(op, u.reshape(*op.shape, op.pdim)).reshape(-1)
 
 
 def matvec_g(op: StencilOperator, g):
     """K @ u on GRID-SHAPED (*shape, pdim) vectors — no flat reshapes.
 
-    Why this exists: on this image's TPU backend, a flat (ndof,) elementwise
-    multiply FUSED onto the stencil matvec's output silently corrupts the
-    last ~tile of the array at >=1.59M dofs (isolated: `matvec(v)*keep` has
-    29 corrupted tail entries at n=80 while `matvec(v*keep)` and the same
-    combine done in (*shape, pdim) layout are exact — the FIFTH such
-    size-triggered miscompile, see CLAUDE.md). All fused solver code (CG
-    chunks, V-cycles) therefore carries grid-shaped state and only
-    flattens, if at all, as the program's final op.
+    Why this exists: on an earlier accelerator backend, a flat (ndof,)
+    elementwise multiply FUSED onto the stencil matvec's output silently
+    corrupted the array tail at >=1.59M dofs (`matvec(v)*keep` wrong while
+    `matvec(v*keep)` and the same combine in (*shape, pdim) layout were
+    exact — miscompile #5, DESIGN.md). All fused solver code (CG chunks,
+    V-cycles) carries grid-shaped state and only flattens, if at all, as
+    the program's final op.
     """
-    sh = op.shape + (op.pdim,)
-    if op._impl() == "planes" and op.lam.ndim == 0:
-        return _planes_core(op, jnp.moveaxis(g, -1, 0))
-    if op._impl() == "planes27" and op.lam.ndim == 0:
-        return _planes27_core(op, jnp.moveaxis(g, -1, 0))
-    return _matmul_core(op, g).reshape(sh)
-
-
-def matvec_matmul(op: StencilOperator, u):
-    """K @ u via 8 (or 4) shifted slices + one or two big matmuls."""
-    return _matmul_core(op, u.reshape(*op.shape, op.pdim)).reshape(-1)
+    return _matmul_core(op, g)
 
 
 def _matmul_core(op: StencilOperator, nodes):
@@ -282,8 +245,8 @@ def matvec_planes(op: StencilOperator, u):
     component-planes — the bandwidth-optimal form for scalar materials.
 
     The matmul form above materializes a (ne, nn*pdim) gather (24x the DOF
-    vector in 3D) and runs nn scatter-adds; measured ~36x off the HBM
-    speed-of-light at 824k dofs. Here the same operator is expressed as
+    vector in 3D) and runs nn scatter-adds, far more memory traffic than
+    the vector itself. Here the same operator is expressed as
 
         out_p[n] = sum_a M_a[n] * sum_{b,q} k[a,p,b,q] * u_q[n - off_a + off_b]
 
@@ -292,9 +255,14 @@ def matvec_planes(op: StencilOperator, u):
     zero-padded (pdim, *(shape+2)) component-planes array. XLA fuses the
     whole sum into one elementwise kernel: traffic ~ u + out instead of
     ~50x u. The per-axis masks are built with numpy at trace time (they
-    become small f32 constants — no in-jit bool casts, CLAUDE.md
+    become small f32 constants — no in-jit bool casts, DESIGN.md
     miscompile #3). Scalar materials only; heterogeneous fields use the
     matmul form.
+
+    No solver runs it: a fused solver program inlines dozens of matvecs,
+    and 576 unrolled terms each make that program too large to compile in
+    reasonable time (PERF.md). It stays as the bandwidth-bound reference
+    form of the operator, timed by chip_smoke.py.
     """
     if op.lam.ndim != 0:
         raise NotImplementedError("matvec_planes requires scalar materials")
@@ -344,129 +312,6 @@ def _planes_core(op: StencilOperator, comps):
     return jnp.moveaxis(out, 0, -1)
 
 
-@functools.lru_cache(maxsize=None)
-def _pair_tables(pdim: int):
-    """Static corner-pair tables for the collapsed stencil: for each node
-    shift o = off_b - off_a (27 in 3D, 9 in 2D) and each corner a, the
-    matching corner b and a validity flag. Lets the traced code build
-    k_pair[o, a, p, q] = k_ref[a, p, b(o, a), q] with ONE advanced-indexing
-    gather instead of nn^2 Python-level adds."""
-    offs = _HEX_OFFSETS if pdim == 3 else _QUAD_OFFSETS
-    nn = len(offs)
-    pos = {off: i for i, off in enumerate(offs)}
-    o_list = tuple(itertools.product((-1, 0, 1), repeat=pdim))
-    A = np.zeros((len(o_list), nn), np.int32)
-    B = np.zeros((len(o_list), nn), np.int32)
-    V = np.zeros((len(o_list), nn), np.float64)
-    for oi, o in enumerate(o_list):
-        for a in range(nn):
-            bt = tuple(offs[a][i] + o[i] for i in range(pdim))
-            if bt in pos:
-                A[oi, a] = a
-                B[oi, a] = pos[bt]
-                V[oi, a] = 1.0
-    return o_list, A, B, V
-
-
-@functools.lru_cache(maxsize=None)
-def _face_masks_np(shape: Tuple[int, ...], ax: int, side: int):
-    """(nn, *face_shape) float64 mask: for corner a and node x on the
-    `side` face of axis `ax`, 1.0 iff the cell at x - off_a exists — the
-    product of GLOBAL per-axis indicators (including the scalar axis-ax
-    factor), so shared edge and corner nodes come out exact."""
-    pdim = len(shape)
-    offs = _HEX_OFFSETS if pdim == 3 else _QUAD_OFFSETS
-    nn = len(offs)
-    xg = 0 if side == 0 else shape[ax] - 1
-    face_shape = tuple(1 if i == ax else n for i, n in enumerate(shape))
-    out = np.zeros((nn,) + face_shape, np.float64)
-    for a in range(nn):
-        if not (0 <= xg - offs[a][ax] <= shape[ax] - 2):
-            continue
-        m = np.ones(face_shape)
-        for ax2 in range(pdim):
-            if ax2 == ax:
-                continue
-            x = np.arange(shape[ax2])
-            ok = ((x - offs[a][ax2] >= 0)
-                  & (x - offs[a][ax2] <= shape[ax2] - 2))
-            msh = [1] * pdim
-            msh[ax2] = shape[ax2]
-            m = m * ok.astype(np.float64).reshape(msh)
-        out[a] = m
-    return out
-
-
-def matvec_planes27(op: StencilOperator, u):
-    """K @ u as the COLLAPSED 27-point (3D) / 9-point (2D) constant stencil
-    plus exact face recomputation — 27*pdim^2 FMA terms per node instead of
-    the per-corner-masked planes form's (2^pdim)^2*pdim^2 (243 vs 576 in
-    3D), targeting the VPU issue rate that binds the planes schedule
-    (DESIGN.md §6). Interior nodes use the constant collapsed coefficients;
-    the 2*pdim boundary faces (where some incident cells are missing) are
-    recomputed with the globally-masked per-corner sum and pasted over.
-    Scalar materials only, like matvec_planes."""
-    if op.lam.ndim != 0:
-        raise NotImplementedError("matvec_planes27 requires scalar materials")
-    comps = jnp.moveaxis(u.reshape(*op.shape, op.pdim), -1, 0)
-    return _planes27_core(op, comps).reshape(-1)
-
-
-def _planes27_core(op: StencilOperator, comps):
-    """planes27 core: comps (pdim, *shape) in, (*shape, pdim) out.
-
-    Interior nodes: the constant collapsed coefficients, 243 FMA terms
-    (3D) that XLA fuses into one elementwise pass. Boundary faces: the
-    exact per-corner masked sum, contracted as TWO small einsums per face
-    against a static numpy mask tensor. The earlier scalar-term face form
-    traced ~7k equations per matvec, which blew the chunked MG-CG program
-    past ~600k equations at 1.59M dofs (>30 min trace+compile, killed);
-    this form traces ~10x smaller while computing the identical values."""
-    shape = op.shape
-    pdim = op.pdim
-    nn = len(op.offsets)
-    dtype = comps.dtype
-    o_list, A_t, B_t, V_t = _pair_tables(pdim)
-    k_ref = (op.lam * op.k_lam + op.mu * op.k_mu).reshape(nn, pdim, nn, pdim)
-    # k_pair[o, a, p, q] = k_ref[a, p, b(o, a), q], 0 where no matching b
-    k_pair = (k_ref[A_t, :, B_t, :]
-              * jnp.asarray(V_t, dtype=dtype)[:, :, None, None])
-    csum = jnp.sum(k_pair, axis=1)  # interior collapsed coefficients
-    U = jnp.pad(comps, [(0, 0)] + [(1, 1)] * pdim)
-
-    totals = [None] * pdim
-    for oi, o in enumerate(o_list):
-        sl = tuple(slice(1 + oo, 1 + oo + n) for oo, n in zip(o, shape))
-        for q in range(pdim):
-            Uq = U[(q,) + sl]
-            for p in range(pdim):
-                term = csum[oi, p, q] * Uq
-                totals[p] = term if totals[p] is None else totals[p] + term
-    out = jnp.stack(totals, axis=0)  # (pdim, *shape)
-
-    # paste exact boundary faces (each face value is globally correct,
-    # including shared edges/corners, so paste order is irrelevant)
-    for ax in range(pdim):
-        for side in (0, 1):
-            xg = 0 if side == 0 else shape[ax] - 1
-            mface = jnp.asarray(_face_masks_np(shape, ax, side), dtype=dtype)
-            rows = []
-            for o in o_list:
-                sl = tuple(
-                    slice(1 + xg + o[i], 2 + xg + o[i]) if i == ax
-                    else slice(1 + o[i], 1 + o[i] + shape[i])
-                    for i in range(pdim)
-                )
-                rows.append(U[(slice(None),) + sl])
-            S = jnp.stack(rows, axis=0)  # (n_o, pdim, *face_shape)
-            T = jnp.einsum("oapq,oq...->ap...", k_pair, S, precision=_HIGH)
-            face = jnp.einsum("ap...,a...->p...", T, mface, precision=_HIGH)
-            idx = [slice(None)] * (pdim + 1)
-            idx[1 + ax] = slice(xg, xg + 1)
-            out = out.at[tuple(idx)].set(face)
-    return jnp.moveaxis(out, 0, -1)
-
-
 def matvec_pairs(op: StencilOperator, u):
     """K @ u via per-corner-pair fused slice arithmetic (no (ne, nn*pdim)
     intermediate, no masks — cell-grid slices are exact at boundaries).
@@ -508,16 +353,13 @@ def matvec_sharded(op: StencilOperator, u, mesh, axis=None):
 
     The node grid's leading axis is split into equal cell slabs; each device
     runs the local stencil matvec on its slab (pure slicing + one matmul)
-    and the shared boundary planes are reduced by a single psum — the ICI
-    halo reduction. u is replicated (a 1.6M-dof f32 grid is ~6.4MB; psum of
-    it per matvec is ~100us-class on ICI, far below the compute).
+    and the shared boundary planes are reduced by a single psum — the halo
+    reduction. u is replicated (a 1.6M-dof f32 grid is ~6.4MB, so its psum
+    per matvec is small next to the compute).
 
     Requires (shape[0]-1) divisible by the mesh size.
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     axis = axis or mesh.axis_names[0]
@@ -572,7 +414,7 @@ def matvec_sharded(op: StencilOperator, u, mesh, axis=None):
 # dimension", SURVEY.md §2c): device d owns node planes [d*c, d*c+c] of the
 # leading axis (one plane overlapped with the next device), and a matvec
 # communicates exactly TWO boundary planes via ppermute — the classical
-# halo exchange, riding ICI.
+# halo exchange over the device interconnect.
 
 
 def to_blocks(op: StencilOperator, u, nd: int):
@@ -628,10 +470,7 @@ def halo_matvec(op: StencilOperator, u_blocks, mesh, axis=None,
     materials are supported by passing `field_blocks = fields_to_blocks(op,
     nd)` sharded the same way (cell slabs are disjoint, so no material
     halo is needed)."""
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     if op.lam.ndim != 0 and field_blocks is None:

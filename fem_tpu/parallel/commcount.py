@@ -1,14 +1,12 @@
-"""Jaxpr-level collective counting — the DESIGN.md §5b ICI traffic model.
+"""Jaxpr-level collective counting — the DESIGN.md §5b traffic model.
 
-Real multi-chip hardware is not attachable in this environment, so the
-per-apply communication cost of every sharded operator is validated by
+The per-apply communication cost of every sharded operator is validated by
 COUNTING the collectives in its traced program (ppermute/psum primitives
 and their operand bytes) on the virtual device mesh. Used by
 tests/test_comm_model.py (asserts counts == the closed-form model) and by
 __graft_entry__.dryrun_multichip (prints the validated inventory into the
-driver's MULTICHIP artifact — VERDICT r4 next #7). TPU-native analogue of
-auditing the reference's MPI ghost-exchange volume
-(/root/reference/src/m_global.F90:549-564).
+multi-device dry run). The analogue of auditing the reference's MPI
+ghost-exchange volume (m_global.F90:549-564).
 """
 
 import jax

@@ -22,7 +22,7 @@ mesh):
      (S + 2B)-node extended slab.
   4. A matvec exchanges exactly FOUR (pdim, B) boundary bands (two
      ppermute pairs: fetch neighbor values, return neighbor
-     contributions) instead of psum-ing O(ndof) — the ICI traffic drops
+     contributions) instead of psum-ing O(ndof) — the interconnect traffic drops
      from ndof to 4*B*pdim per device per apply.
 
 Falls back (raises ValueError at build) when the mesh has multiple
@@ -39,10 +39,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from fem_tpu.ops import operator as op_mod
 

@@ -1,11 +1,11 @@
 """Device-mesh helpers.
 
 The reference's parallelism is one-axis domain decomposition over mesh
-elements via METIS + MPI (SURVEY.md §2c). The TPU-native equivalent is one
-logical mesh axis over the chips of a slice: elements are sharded along it,
+elements via METIS + MPI (SURVEY.md §2c). The equivalent here is one
+logical mesh axis over the local devices: elements are sharded along it,
 DOF vectors are either replicated (small n) or sharded (large n), and the
 shared-node reduction that PETSc's MatAssembly/VecScatter performed becomes a
-psum / reduce_scatter over ICI.
+psum / reduce_scatter over the device interconnect.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Sharded matrix-free FEM operators (shard_map + ICI collectives).
+"""Sharded matrix-free FEM operators (shard_map + collectives).
 
 Replaces the reference's METIS partitioning + PETSc distributed assembly
 (PartitionBroadcast m_io.F90:107-143, DistributeElements m_io.F90:200-237,
@@ -10,7 +10,7 @@ MatAssembly/VecScatter comms) with SPMD element sharding:
     data: ndof ~ nodes*pdim, while element data is O(ne*ndof_e^2));
   - the matvec is: local gather -> batched k_e @ u_e -> local scatter-add
     -> jax.lax.psum over the axis. The psum is exactly the shared-node
-    reduction PETSc performed in MatAssembly (SURVEY.md §2c), riding ICI.
+    reduction PETSc performed in MatAssembly (SURVEY.md §2c), over the interconnect.
 
 Partition quality does not matter here (unlike METIS): every device does
 identical dense batched work, and the reduction cost is O(ndof) independent
@@ -28,10 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from fem_tpu.models.system import System
 from fem_tpu.parallel.mesh import AXIS, make_mesh
@@ -166,7 +163,7 @@ class ShardedOperator:
     def matvec(self, u, blocks=None):
         """K @ u. `blocks` lets callers pass the sharded element data as a
         jit ARGUMENT instead of a traced closure constant (embedding the
-        arrays in HLO blows up program size — see CLAUDE.md)."""
+        arrays in HLO blows up program size)."""
         blocks = self.blocks if blocks is None else blocks
         out = jnp.zeros(self.ndof, dtype=u.dtype)
         if self.mode == "ke":

@@ -6,7 +6,7 @@ m_io.F90:200-237), global->local node renumbering and the nl2g map
 (main.F90:49-97) — so that results can be written as one legacy VTK file per
 shard exactly like the reference's per-rank writers (m_io.F90:480-555).
 
-On TPU the *solve* does not need any of this (elements are sharded by
+On devices the *solve* does not need any of this (elements are sharded by
 block/RCB and shared dofs are psum-reduced); this module exists for I/O
 parity and for locality-aware orderings of the gather path.
 """

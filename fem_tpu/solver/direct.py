@@ -1,10 +1,10 @@
 """Dense direct solve — the small-problem stand-in for MUMPS.
 
 The reference always factorizes with a distributed sparse direct LU
-(MUMPS via PETSc PCLU, main.F90:354-390). A direct sparse LU is not
-TPU-idiomatic; for the small shipped examples we use a dense factorization on
-device (LU with partial pivoting via jax.scipy), and large problems take the
-matrix-free Krylov path (fem_tpu/solver/cg.py) instead.
+(MUMPS via PETSc PCLU, main.F90:354-390). For the small shipped examples we
+use a dense f64 factorization on the device (LU with partial pivoting via
+jax.scipy), and large problems take the matrix-free Krylov path
+(fem_tpu/solver/cg.py) instead.
 """
 
 from __future__ import annotations
@@ -14,22 +14,9 @@ import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 
 
-def _lu_device(dtype):
-    """TPU XLA implements LuDecomposition only for f32/c64; the f64 dense
-    direct path (small decks, MUMPS's role) must factorize on the host CPU
-    backend — same division of labor as the reference, whose MUMPS LU is a
-    host-side library call (main.F90:354-390)."""
-    if jnp.dtype(dtype) == jnp.float64 and jax.default_backend() != "cpu":
-        return jax.devices("cpu")[0]
-    return None
-
-
 def factorize(K):
     """LU-factorize once; reuse across time steps (the reference sets up the
     KSP once, main.F90:199-214)."""
-    dev = _lu_device(K.dtype)
-    if dev is not None:
-        K = jax.device_put(K, dev)
     lu, piv = jsl.lu_factor(K)
     return (lu, piv)
 
@@ -74,80 +61,11 @@ def det_report(fac, null_rtol: float = 1e-12, ref_scale=None):
 
 
 def solve_factorized(fac, F):
-    lu, piv = fac
-    dev = _lu_device(lu.dtype)
-    if dev is not None:
-        F = jax.device_put(F, dev)
-    return jsl.lu_solve((lu, piv), F)
+    return jsl.lu_solve(fac, F)
 
 
 def solve(K, F):
-    dev = _lu_device(K.dtype)
-    if dev is not None:
-        K, F = jax.device_put(K, dev), jax.device_put(F, dev)
     return jnp.linalg.solve(K, F)
-
-
-def solve_in_jit(J, rhs, refine: int = 3, mixed=None):
-    """Dense solve usable INSIDE a jitted program on any backend.
-
-    On CPU (or for f32 operands) this is jnp.linalg.solve. For f64 on the
-    TPU-class backends — where XLA's LuDecomposition expander supports only
-    f32/c64, so a traced f64 solve cannot compile at all — it row-
-    equilibrates (the 1e30 penalty-BC rows become ~unit rows, restoring the
-    physical conditioning), LU-factorizes once in f32, and recovers f64
-    accuracy with `refine` iterative-refinement passes: the same
-    mixed-precision pattern the production Krylov paths use (solver/mixed.py,
-    MUMPS role per main.F90:354-390). The backend test runs at trace time,
-    so CPU programs are bit-identical to the plain solve. `mixed` overrides
-    the trace-time backend test (tests exercise the TPU path on CPU)."""
-    if mixed is None:
-        mixed = J.dtype == jnp.float64 and jax.default_backend() != "cpu"
-    if not mixed:
-        return jnp.linalg.solve(J, rhs)
-    s = 1.0 / jnp.maximum(jnp.max(jnp.abs(J), axis=1), 1e-300)
-    lu, piv = jsl.lu_factor((J * s[:, None]).astype(jnp.float32))
-
-    def corr(r):  # f64 residual -> f64 correction via the f32 factors
-        y = jsl.lu_solve((lu, piv), (r * s).astype(jnp.float32))
-        return y.astype(jnp.float64)
-
-    x = corr(rhs)
-    for _ in range(refine):
-        x = x + corr(rhs - jnp.matmul(
-            J, x, precision=jax.lax.Precision.HIGHEST))
-    return x
-
-
-def inv_in_jit(A, refine: int = 2, mixed=None):
-    """Batched small-matrix inverse usable INSIDE jit on any backend.
-
-    CPU / f32: jnp.linalg.inv. f64 on TPU-class backends (no f64
-    LuDecomposition): row-equilibrate, factorize in f32, back-substitute
-    against I, then Newton-refine X <- X + X(I - A X) in f64 — one step
-    squares the f32 error (~1e-7 -> ~1e-14), two steps for margin. Used by
-    the viscoelastic creep correction's (S + dt*beta')^-1
-    (m_local.F90:127-145 role). `mixed` overrides the trace-time backend
-    test (tests exercise the TPU path on CPU)."""
-    if mixed is None:
-        mixed = A.dtype == jnp.float64 and jax.default_backend() != "cpu"
-    if not mixed:
-        return jnp.linalg.inv(A)
-    s = 1.0 / jnp.maximum(jnp.max(jnp.abs(A), axis=-1), 1e-300)
-    As = A * s[..., :, None]
-    lu, piv = jsl.lu_factor(As.astype(jnp.float32))
-    eye = jnp.broadcast_to(
-        jnp.eye(A.shape[-1], dtype=jnp.float32),
-        As.shape,
-    )
-    X = jsl.lu_solve((lu, piv), eye).astype(jnp.float64)
-    hi = jax.lax.Precision.HIGHEST
-    eye64 = eye.astype(jnp.float64)
-    for _ in range(refine):
-        R = eye64 - jnp.matmul(As, X, precision=hi)
-        X = X + jnp.matmul(X, R, precision=hi)
-    # As = diag(s) A, so inv(A) = inv(As) diag(s): scale X's columns by s.
-    return X * s[..., None, :]
 
 
 def apply_penalty_bcs(K, F, bc_dofs, bc_step_vals, penalty):

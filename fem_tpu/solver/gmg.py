@@ -2,18 +2,16 @@
 gather-free block stencil.
 
 Covers the same MUMPS-distributed-solver role as solver/amg.py
-(/root/reference/src/main.F90:354-390) on the large sub-class of decks whose
+(main.F90:354-390) on the large sub-class of decks whose
 assembled connectivity is a lattice even when the geometry is not (jittered /
 graded / mapped grids, and the cohesive strip whose two blocks embed in one
 lattice with a zero-stiffness seam — see ops/blockstencil.py tier 2).
 
-Why this exists (measured, one v5e chip, 1.01M-dof cohesive strip): the
-SA-AMG V-cycle costs ~90 ms/apply, of which ~82 ms is the FIRST COARSE
-level's scalar-ELL gather matvec (11.7 ms x 7 Chebyshev applies at 60.7k
-dofs) and ~12 ms the block-table transfers — while the fine lattice-stencil
-matvec itself is 1.4 ms (tools/profile_vcycle.py). The coarse levels are
-gather-bound, not FLOP- or bandwidth-bound: XLA lowers x[cols] to serial
-HBM gathers (DESIGN.md roofline).
+Why this exists: most of an SA-AMG V-cycle goes to the FIRST COARSE
+level's scalar-ELL gather matvec (7 Chebyshev applies) and the block-table
+transfers, while the fine lattice-stencil matvec itself is cheap. The
+coarse levels are gather-bound, not FLOP- or bandwidth-bound: XLA lowers
+x[cols] to gathers.
 
 The fix is structural, not a faster gather: coarsen GEOMETRICALLY by
 factor 2 per axis with kron'd 1D linear interpolation. For a reach-1
@@ -36,7 +34,6 @@ blocked Cholesky — the MUMPS icntl(24) analogue).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -199,48 +196,14 @@ def build_lattice(
     """Build the geometric hierarchy from the assembled scipy CSR `A` whose
     node numbering is lex over `dims` (bs.detect provides dims). Returns
     None if any Galerkin level leaves the lattice (never observed; the
-    caller then falls back to amg.build), or if the miscompile guard below
-    would need a dense coarse too large to invert.
-
-    TPU miscompile #6 (round 4, isolated by tools/debug_gmg.py
-    STAGE=gdepth,gcg at n=70/1.07M dofs): GMG programs whose fine level
-    is a >=~1M-dof 3D GRID-shaped state go NaN on this backend in every
-    shape tried — 3 stencil levels + tiny dense coarse (the 527k-proven
-    production shape), 2 stencil levels with the coarse zeroed PLUS a
-    17.5k dense coarse, chunked CG and SINGLE V-cycle applies alike —
-    while (a) every piece is exact standalone, (b) depth-2 compositions
-    are exact, (c) optimization_barrier does not help, and (d) the
-    SA-AMG program of the same size (flat/ELL layout, an even larger
-    dense coarse at 18.9k) is exact at 1.07M. Same family as miscompiles
-    #3/#5: size-triggered fusion bugs, here specific to the grid-layout
-    transfer/smooth compositions — and BINARY-dependent (the 527k cycle
-    recompiled corrupt in round 4), so no size threshold is safe.
-    Default guard: DECLINE ALL 3D lattices on non-CPU backends, any size
-    (return None — the caller's SA path is proven: 1.606 s @1.07M, 28
-    iters, BENCH_extra r4); FEM_TPU_FORCE_GMG=1 opts back in. The 2D
-    cohesive deck runs the deep hierarchy clean at 1.01M dofs and stays
-    enabled, as does CPU; pass max_stencil_levels explicitly to re-run
-    the experiments."""
+    caller then falls back to amg.build). `max_stencil_levels` caps the
+    number of stencil levels (default: all but the dense coarse)."""
     A = A.tocsr()
     if bc_dofs is not None and len(np.asarray(bc_dofs)) > 0:
         A = amg_mod._eliminate_bcs(A, np.asarray(bc_dofs))
     np_dtype = np.dtype(jnp.dtype(dtype).name)
 
     if max_stencil_levels is None:
-        if (len(dims) >= 3 and jax.default_backend() != "cpu"
-                and os.environ.get("FEM_TPU_FORCE_GMG", "0") != "1"):
-            # miscompile #6 — see docstring. Round 4 follow-up: the
-            # corruption is BINARY-dependent, not just size-dependent —
-            # the 527k 3D cycle that ran 24-iteration-clean in round 3
-            # RECOMPILED into a silently corrupt binary (finite ~1e8
-            # spikes; the f64 IR outer still converges, at ~10x the
-            # iterations). On the TPU backend the reliable production
-            # default for 3D lattices is therefore SA-AMG at ANY size;
-            # FEM_TPU_FORCE_GMG=1 opts back in (bench demotes on its
-            # acceptance test if the binary comes back corrupt). CPU
-            # executes these programs exactly — tests and 2D decks keep
-            # the deep hierarchy.
-            return None
         max_stencil_levels = max_levels - 1
     dense_coarse_cap = 24000  # largest coarse amg._dense_inv can take
 
@@ -293,10 +256,8 @@ def build_lattice(
     if not levels:
         return None
     if cur_A.shape[0] > dense_coarse_cap:
-        # the miscompile-#6 guard stopped coarsening but the remaining
-        # level is too large for a dense inverse — no safe GMG shape
-        # exists; the caller falls back to SA-AMG (whose ELL mid-levels
-        # are exact at these sizes)
+        # a level cap stopped coarsening above what a dense inverse can
+        # take; the caller falls back to SA-AMG
         return None
     Kc = cur_A.toarray()
     coarse_inv = amg_mod._dense_inv(Kc)
@@ -312,8 +273,8 @@ def build_lattice(
 
 
 def _interp_axis_n(a, axis: int, n_fine: int):
-    """multigrid._interp_axis (m -> 2m-1, stack/reshape interleave — the
-    TPU-safe form) generalized to EVEN fine sizes: 2m appends a weight-1
+    """multigrid._interp_axis (m -> 2m-1, stack/reshape interleave)
+    generalized to EVEN fine sizes: 2m appends a weight-1
     copy of the last coarse value (the adjoint of _restrict_axis_n)."""
     m = a.shape[axis]
     body = mg_mod._interp_axis(a, axis)
@@ -418,292 +379,3 @@ def v_cycle_cm(h: GMGPrecond, fine_matvec_cm: Callable, r_cm):
 
 def preconditioner_g(h: GMGPrecond, fine_matvec_g: Callable) -> Callable:
     return lambda r: v_cycle_g(h, fine_matvec_g, r)
-
-
-# ---------------------------------------------------------------------------
-# ELL/cm-shaped geometric cycle — the miscompile-#6-free program shape
-# ---------------------------------------------------------------------------
-#
-# Round 4 isolated TPU miscompile #6 to GRID-layout transfer/smooth
-# compositions: 3D grid-state GMG cycles compile unreliably (NaN at >=1M,
-# binary-dependent corruption at 527k) while SA-AMG's flat/component-major
-# programs — gather transfers, cm carried state, bs.matvec_cm fine applies —
-# are exact at every size tried (gmg.py build_lattice docstring; VERDICT r4
-# missing #2). This section runs the SAME geometric hierarchy (same host
-# P/RAP, same Chebyshev smoothing, gather-free block-stencil operator
-# applies at every level) but carries (pdim, nnds_l) COMPONENT-MAJOR state
-# end-to-end and implements the kron transfers as fixed-width scalar-weight
-# node gathers (Kp <= 2^d parents per fine node, Ka <= 3^d children per
-# coarse node) instead of the stack/reshape interleaves. No grid-shaped
-# array ever crosses an op boundary except inside a single bs.matvec_cm
-# call — the exact usage proven at 1.07M dofs by the SA fallback records
-# (BENCH_extra r4).
-
-
-def _node_transfer_tables(Pn, nf: int, nc: int):
-    """Scalar node-level transfer tables from the kron'd prolongator Pn
-    (nf fine nodes x nc coarse nodes, csr).
-
-    Returns numpy arrays:
-      pt_nodes (Kp, nf) int32: coarse parents of each fine node (pad: nc)
-      pt_vals  (Kp, nf): interpolation weights (pad: 0)
-      rt_nodes (Ka, nc) int32: fine children of each coarse node (pad: nf)
-      rt_vals  (Ka, nc): the same weights, transposed layout (pad: 0)
-    """
-    Pc = Pn.tocoo()
-    rows = Pc.row.astype(np.int64)
-    cols = Pc.col.astype(np.int64)
-    vals = Pc.data
-
-    def slots(ids, nseg):
-        order = np.argsort(ids, kind="stable")
-        counts = np.bincount(ids, minlength=nseg)
-        K = max(int(counts.max()) if len(ids) else 1, 1)
-        starts = np.zeros(nseg + 1, dtype=np.int64)
-        np.cumsum(counts, out=starts[1:])
-        slot = np.empty(len(ids), dtype=np.int64)
-        slot[order] = np.arange(len(ids)) - starts[ids[order]]
-        return slot, K
-
-    p_slot, Kp = slots(rows, nf)
-    r_slot, Ka = slots(cols, nc)
-    pt_nodes = np.full((Kp, nf), nc, dtype=np.int32)
-    pt_vals = np.zeros((Kp, nf))
-    pt_nodes[p_slot, rows] = cols
-    pt_vals[p_slot, rows] = vals
-    rt_nodes = np.full((Ka, nc), nf, dtype=np.int32)
-    rt_vals = np.zeros((Ka, nc))
-    rt_nodes[r_slot, cols] = rows
-    rt_vals[r_slot, cols] = vals
-    return pt_nodes, pt_vals, rt_nodes, rt_vals
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class GMGEllLevel:
-    # smoothing operator; None on level 0 (caller's fine matvec_cm is used)
-    op: Optional[bs.BlockStencilOperator]
-    dinv_cm: jax.Array  # (pdim, nnds_l) 1/diag (1.0 where diag == 0)
-    # transfers to the NEXT level (scalar node tables; P = Pn kron I_pdim)
-    pt_nodes: jax.Array  # (Kp, nf) int32
-    pt_vals: jax.Array  # (Kp, nf)
-    rt_nodes: jax.Array  # (Ka, nc) int32
-    rt_vals: jax.Array  # (Ka, nc)
-    # per-axis DENSE kron factors (nf_ax, nc_ax), None on uncoarsened axes
-    # — the transfer="matmul" path contracts them on the MXU instead of
-    # gathering (profile at 1.07M: gather transfers 16.6 ms/cycle vs
-    # ~2 ms of tiny matmuls)
-    ax_p: Tuple[Optional[jax.Array], ...]
-    theta: float = dataclasses.field(metadata=dict(static=True))
-    delta: float = dataclasses.field(metadata=dict(static=True))
-    dims_f: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
-    dims_c: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
-    transfer: str = dataclasses.field(default="gather",
-                                      metadata=dict(static=True))
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class GMGEllPrecond:
-    levels: Tuple[GMGEllLevel, ...]
-    coarse_inv: jax.Array  # dense inverse, interleaved (node*pdim+p) order
-    pdim: int = dataclasses.field(metadata=dict(static=True))
-    degree: int = dataclasses.field(default=3, metadata=dict(static=True))
-
-    def astype(self, dtype):
-        def cast(x):
-            return (x.astype(dtype)
-                    if jnp.issubdtype(x.dtype, jnp.floating) else x)
-
-        return jax.tree_util.tree_map(cast, self)
-
-
-def build_lattice_ell(
-    A,
-    pdim: int,
-    dims: Tuple[int, ...],
-    bc_dofs=None,
-    coarse_max: int = 2400,
-    max_levels: int = 10,
-    degree: int = 3,
-    dtype=jnp.float32,
-    lb_frac: float = 30.0,
-    transfer: str = "matmul",
-) -> Optional[GMGEllPrecond]:
-    """Geometric hierarchy (identical host construction to build_lattice:
-    strength-guided semi-coarsening kron P, Galerkin RAP, every level a
-    lattice block stencil) packaged for the ELL/cm cycle. Unlike
-    build_lattice this is NOT declined on 3D TPU backends — the cm program
-    shape is the miscompile-#6 remedy, not a victim. Stress-tested round
-    5: five fresh-compile (FEM_TPU_NO_CACHE=1) acceptance runs — 3x527k +
-    2x1.07M, matmul transfers — all converged identically (24 inner its,
-    rel 2.0e-11/1.6e-11, zero demotions; BENCH_extra r5). Records: 527k
-    0.432 s / 1.07M 0.771 s steady vs SA-AMG 0.72/1.606 s and the
-    grid-cycle's NaN at 1.07M. Returns None only if a Galerkin level
-    leaves the lattice or the coarse level is too large to invert
-    densely. MUMPS role: one reliable solver configuration for any
-    mesh/any size (main.F90:354-390)."""
-    import scipy.sparse as sp
-
-    A = A.tocsr()
-    if bc_dofs is not None and len(np.asarray(bc_dofs)) > 0:
-        A = amg_mod._eliminate_bcs(A, np.asarray(bc_dofs))
-    np_dtype = np.dtype(jnp.dtype(dtype).name)
-    dense_coarse_cap = 24000
-
-    levels = []
-    cur_A, cur_dims = A, tuple(int(d) for d in dims)
-    while (len(levels) < max_levels - 1
-           and (cur_A.shape[0] > coarse_max or not levels)
-           and any(d >= 3 for d in cur_dims)):
-        if not _axis_offsets_ok(cur_A, pdim, cur_dims):
-            return None
-        can = np.array([d >= 3 for d in cur_dims])
-        strengths = _axis_strengths(cur_A, pdim, cur_dims)
-        flags = can & (strengths >= 0.25 * strengths[can].max())
-        if not flags.any():
-            flags = can
-        d = cur_A.diagonal()
-        dinv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 1.0)
-        lam_max = 1.1 * amg_mod._lambda_max(cur_A, dinv)
-        lb = lam_max / lb_frac
-        op = None
-        if levels:
-            op = bs.build(cur_A, pdim, cur_dims, dtype=dtype)
-        nnds_l = int(np.prod(cur_dims))
-
-        # node prolongator (no pdim kron) drives the device tables; the
-        # kron'd P drives the Galerkin product — same map, two packagings
-        def fac(ax, dd):
-            if not flags[ax]:
-                return sp.identity(dd, format="csr")
-            return _p1d(dd)
-
-        Pn = fac(0, cur_dims[0])
-        for ax, dd in enumerate(cur_dims[1:], start=1):
-            Pn = sp.kron(Pn, fac(ax, dd), format="csr")
-        nc_nodes = Pn.shape[1]
-        pt_n, pt_v, rt_n, rt_v = _node_transfer_tables(
-            Pn.tocsr(), nnds_l, nc_nodes)
-        next_dims = tuple((dd + 1) // 2 if f else dd
-                          for dd, f in zip(cur_dims, flags))
-        levels.append(GMGEllLevel(
-            op=op,
-            dinv_cm=jnp.asarray(
-                dinv.astype(np_dtype).reshape(nnds_l, pdim).T),
-            pt_nodes=jnp.asarray(pt_n),
-            pt_vals=jnp.asarray(pt_v.astype(np_dtype)),
-            rt_nodes=jnp.asarray(rt_n),
-            rt_vals=jnp.asarray(rt_v.astype(np_dtype)),
-            ax_p=tuple(
-                (jnp.asarray(_p1d(dd).toarray().astype(np_dtype))
-                 if f else None)
-                for dd, f in zip(cur_dims, flags)),
-            theta=float(0.5 * (lam_max + lb)),
-            delta=float(0.5 * (lam_max - lb)),
-            dims_f=cur_dims,
-            dims_c=next_dims,
-            transfer=transfer,
-        ))
-        P = sp.kron(Pn, sp.identity(pdim, format="csr"), format="csr")
-        cur_A = (P.T.tocsr() @ (cur_A @ P)).tocsr()
-        cur_A.sum_duplicates()
-        cur_dims = next_dims
-    if not levels:
-        return None
-    if cur_A.shape[0] > dense_coarse_cap:
-        return None
-    Kc = cur_A.toarray()
-    coarse_inv = amg_mod._dense_inv(Kc)
-    if jnp.issubdtype(coarse_inv.dtype, jnp.floating):
-        coarse_inv = coarse_inv.astype(dtype)
-    return GMGEllPrecond(levels=tuple(levels), coarse_inv=coarse_inv,
-                         pdim=pdim, degree=degree)
-
-
-def _cheb_cm(matvec_cm, lv: GMGEllLevel, x, b, degree: int):
-    """Chebyshev smoothing of D^-1 A, component-major state — same
-    recurrence as amg._chebyshev_cm."""
-    theta, delta = lv.theta, lv.delta
-    sigma = theta / delta
-    rho = 1.0 / sigma
-    r = lv.dinv_cm * (b - matvec_cm(x))
-    d = r / theta
-    for _ in range(degree - 1):
-        x = x + d
-        r = r - lv.dinv_cm * matvec_cm(d)
-        rho_new = 1.0 / (2.0 * sigma - rho)
-        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
-        rho = rho_new
-    return x + d
-
-
-def restrict_cm(lv: GMGEllLevel, res_cm):
-    """P^T @ res in cm layout. transfer='gather': one (Ka, nc)-index node
-    gather + weighted sum (results keep the LARGE node axis trailing per
-    the TPU gather rules). transfer='matmul': per-axis contractions with
-    the tiny dense kron factors — MXU work instead of gathers (16.6 ->
-    ~2 ms/cycle at 1.07M); the grid reshapes stay INSIDE this function
-    (same single-op-boundary pattern as bs.matvec_cm, proven exact at
-    1.07M — not the cross-op grid-state interleaves of miscompile #6).
-    res_cm (pdim, nf) -> (pdim, nc)."""
-    if lv.transfer == "matmul":
-        g = res_cm.reshape((res_cm.shape[0],) + lv.dims_f)
-        for ax, P in enumerate(lv.ax_p):
-            if P is None:
-                continue
-            # contract the FINE axis with P (nf_ax, nc_ax) -> P^T apply
-            g = jnp.tensordot(P, g, axes=[[0], [1 + ax]],
-                              precision=jax.lax.Precision.HIGHEST)
-            g = jnp.moveaxis(g, 0, 1 + ax)
-        return g.reshape(res_cm.shape[0], -1)
-    res_pad = jnp.pad(res_cm, ((0, 0), (0, 1)))  # zero node column
-    gath = res_pad.at[:, lv.rt_nodes].get(
-        mode="promise_in_bounds")  # (pdim, Ka, nc)
-    return jnp.sum(lv.rt_vals[None] * gath, axis=1)
-
-
-def prolong_cm(lv: GMGEllLevel, xc_cm):
-    """P @ xc in cm layout (adjoint of restrict_cm, same two program
-    shapes). xc_cm (pdim, nc) -> (pdim, nf)."""
-    if lv.transfer == "matmul":
-        g = xc_cm.reshape((xc_cm.shape[0],) + lv.dims_c)
-        for ax, P in enumerate(lv.ax_p):
-            if P is None:
-                continue
-            # contract the COARSE axis with P (nf_ax, nc_ax)
-            g = jnp.tensordot(P, g, axes=[[1], [1 + ax]],
-                              precision=jax.lax.Precision.HIGHEST)
-            g = jnp.moveaxis(g, 0, 1 + ax)
-        return g.reshape(xc_cm.shape[0], -1)
-    xc_pad = jnp.pad(xc_cm, ((0, 0), (0, 1)))
-    gath = xc_pad.at[:, lv.pt_nodes].get(
-        mode="promise_in_bounds")  # (pdim, Kp, nf)
-    return jnp.sum(lv.pt_vals[None] * gath, axis=1)
-
-
-def v_cycle_ell(h: GMGEllPrecond, fine_matvec_cm: Callable, r_cm):
-    """One V-cycle, (pdim, nnds_l) component-major state at every level;
-    level 0 smooths via `fine_matvec_cm` (the caller's masked stencil or
-    full tangent), deeper levels via their own block stencils through
-    bs.matvec_cm."""
-    return _v_ell(h, 0, fine_matvec_cm, r_cm)
-
-
-def _v_ell(h: GMGEllPrecond, i: int, mv_cm: Callable, r_cm):
-    lv = h.levels[i]
-    x = _cheb_cm(mv_cm, lv, jnp.zeros_like(r_cm), r_cm, h.degree)
-    res = r_cm - mv_cm(x)
-    rc = restrict_cm(lv, res)
-    if i + 1 == len(h.levels):
-        # dense coarse: interleaved (node*pdim+p) dof order; the transposes
-        # are coarse-size (cheap) and the matmul rides the MXU
-        rc_flat = rc.T.reshape(-1)
-        xc_flat = jnp.matmul(h.coarse_inv, rc_flat,
-                             precision=jax.lax.Precision.HIGHEST)
-        xc = xc_flat.reshape(-1, h.pdim).T
-    else:
-        nxt = h.levels[i + 1]
-        xc = _v_ell(h, i + 1, lambda v: bs.matvec_cm(nxt.op, v), rc)
-    x = x + prolong_cm(lv, xc)
-    return _cheb_cm(mv_cm, lv, x, r_cm, h.degree)

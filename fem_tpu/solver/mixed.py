@@ -1,17 +1,17 @@
 """Mixed-precision iterative refinement: f64 accuracy at f32 speed.
 
-TPUs have no native float64 — XLA emulates it at ~10x the cost of float32.
-A plain f32 CG stagnates around 1e-6 relative residual, short of the
+f32 arithmetic moves half the bytes of f64 and runs at a higher rate. A plain
+f32 CG stagnates around 1e-6 relative residual, short of the
 reference's 1e-9 KSP tolerance (main.F90:349-351). The classical fix is
 iterative refinement:
 
-  outer (f64): r_k = b - A x_k          one emulated-f64 matvec per cycle
+  outer (f64): r_k = b - A x_k          one f64 matvec per cycle
   inner (f32): solve A d = r_k approximately (Jacobi-PCG, ~1e-4 reduction)
   update:      x_{k+1} = x_k + d
 
 Each cycle multiplies the true residual by the inner reduction factor, so
-~3-4 cycles reach 1e-9 while >95% of the work runs in f32. This is the
-TPU-idiomatic replacement for MUMPS's double-precision factorization.
+~3-4 cycles reach 1e-9 while >95% of the work runs in f32. This replaces
+MUMPS's double-precision factorization for large systems.
 """
 
 from __future__ import annotations
@@ -55,11 +55,10 @@ def ir_solve(
     diag32: f32 Jacobi diagonal (bc rows arbitrary). precond32: optional
     f32 preconditioner callable (e.g. a multigrid V-cycle) overriding Jacobi.
 
-    NOTE: this fused form is correct everywhere JAX is correct; on THIS
-    image's TPU backend prefer the host-driven pattern used by
-    bench.bench_big_solve (cg.pcg_host_split + multigrid.v_cycle_host +
-    eagerly pre-cast float masks) — see CLAUDE.md for the backend miscompile
-    catalogue.
+    NOTE: the production solvers use the chunked refinement loop
+    (cg.ir_pcg_chunked, stepper._ir_outer) with eagerly pre-cast float
+    masks instead — see DESIGN.md for the miscompile catalogue those
+    shapes avoid.
     """
     n = op64.ndof
     bc_mask = jnp.zeros(n, dtype=bool).at[bc_dofs].set(True)

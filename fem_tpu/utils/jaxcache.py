@@ -1,48 +1,33 @@
-"""Persistent-compilation-cache setup with a host fingerprint.
+"""Persistent XLA compilation cache at a fixed place.
 
-The cache survives across processes and (through this repo's filesystem)
-across MACHINES — and XLA:CPU entries are AOT-compiled for the feature set
-of the CPU that built them. Round 4's driver run loaded entries compiled on
-this builder host onto a different CPU and XLA warned "could lead to
-execution errors such as SIGILL" for every load (BENCH_r04 tail; VERDICT r4
-weak #2). TPU entries are host-portable but there is one cache dir per
-process, so the fix is one cache dir per HOST: `.jax_cache/host-<sha1 of
-/proc/cpuinfo flags>`. A different machine starts cold instead of loading
-foreign AOT code.
-
-Disable entirely with FEM_TPU_NO_CACHE=1.
+If `JAX_COMPILATION_CACHE_DIR` is set, JAX already reads it and this module
+sets no other directory. Otherwise the cache lives at `<checkout>/.jax_cache`:
+a fixed path, so a later process on the same checkout finds its entries
+again. Disable entirely with FEM_TPU_NO_CACHE=1.
 """
 
-import hashlib
 import os
-import platform
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
-def host_fingerprint() -> str:
-    """12-hex digest of the CPU feature flags (stable per machine model)."""
-    feats = platform.machine()
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    feats = " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-    except OSError:
-        pass
-    return hashlib.sha1(feats.encode()).hexdigest()[:12]
+def cache_dir() -> str:
+    """The directory the compile cache uses: the environment's, if set."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(_ROOT, ".jax_cache"))
 
 
-def enable(root: str) -> str | None:
-    """Point jax's persistent compilation cache at <root>/.jax_cache/host-<fp>.
+def enable() -> str | None:
+    """Turn on jax's persistent compilation cache; return its directory.
 
-    Returns the cache dir, or None when FEM_TPU_NO_CACHE=1. Must be called
-    after `import jax` but before any compilation.
+    Returns None when FEM_TPU_NO_CACHE=1. Call before any compilation.
     """
     if os.environ.get("FEM_TPU_NO_CACHE", "0") == "1":
         return None
     import jax
 
-    cache = os.path.join(root, ".jax_cache", "host-" + host_fingerprint())
+    cache = cache_dir()
     os.makedirs(cache, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", cache)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)

@@ -1,6 +1,6 @@
 """Small dense matrix helpers (batched, closed form).
 
-TPU-native replacement for the reference's LAPACK usage (m_utils.F90:45-66:
+Batched replacement for the reference's LAPACK usage (m_utils.F90:45-66:
 MatInv via dgetrf/dgetri, MatDet) and the 3D area helpers
 (m_utils.F90:25-42). Everything here is jit/vmap-friendly: closed-form 2x2 and
 3x3 determinants/inverses (no pivoting, no data-dependent control flow), which

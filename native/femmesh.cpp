@@ -4,7 +4,7 @@
 // list-directed deck reader (m_io.F90:12-105,282-475), METIS partitioning
 // (METIS_PartMeshNodal, m_io.F90:137), and the element-distribution /
 // renumbering machinery (m_io.F90:145-237, main.F90:49-97). Re-designed for
-// the TPU framework: instead of graph partitioning for MPI ranks, it
+// the JAX framework: instead of graph partitioning for MPI ranks, it
 // provides
 //   - a fast .inp deck parser producing flat arrays (the Python parser is
 //     the fallback; this one handles multi-hundred-MB decks),
@@ -343,7 +343,7 @@ void fem_free_deck(FemDeck* d) {
 // ------------------------------------------------------------ Morton order
 // Z-order curve index of element centroids: locality-preserving element
 // reordering so that gathers of neighboring elements touch neighboring
-// nodes (replaces METIS' fill-reducing/locality role for the TPU gather
+// nodes (replaces METIS' fill-reducing/locality role for the device gather
 // path).
 static uint64_t spread3(uint64_t x) {
   x &= 0x1fffff;
@@ -396,7 +396,7 @@ void fem_morton_order(const double* centroids, int64_t ne, int pdim,
 // --------------------------------------------------------- RCB partitioning
 // Recursive coordinate bisection of element centroids into nparts equal
 // parts (METIS_PartMeshNodal replacement for device sharding: equal counts
-// matter — every TPU shard does identical dense work — and spatial
+// matter — every device shard does identical dense work — and spatial
 // compactness minimizes the shared-dof reduction surface).
 static void rcb_recurse(const double* centroids, int pdim,
                         std::vector<int32_t>& ids, size_t lo, size_t hi,

@@ -112,9 +112,8 @@ def test_amg_f32_cast_and_chunked_cg():
 def test_dense_coarse_inverse_production_shape():
     """Production hierarchies (coarse_max=20000 at the bench/stepper/newton
     call sites) stop coarsening early and solve the coarsest block with a
-    dense inverse (amg._dense_inv; f32 LAPACK above 4096 dofs): on TPU the
-    ELL coarse cycle was 79.5 ms of the 188 ms V-cycle at 527k dofs.  The
-    f32-accurate inverse must still precondition f64 CG to 1e-9."""
+    dense inverse (amg._dense_inv; f32 LAPACK above 4096 dofs) instead of a
+    gather-bound ELL coarse cycle.  The f32-accurate inverse must still precondition f64 CG to 1e-9."""
     _, s, fop, bc_mask, A, b = _setup(11)  # 5184 dofs -> f32 inverse path
     h = amg.build(s, s.bc_dofs, coarse_max=20000)
     assert len(h.levels) == 1  # whole problem inside the dense block

@@ -1,15 +1,13 @@
 """The bench GMG -> SA-AMG fallback must engage on a corrupt solve.
 
-Round 3's only >=1M-dof GMG record was a NaN (TPU miscompile #5 corrupted
-the grid-shaped matvec before the grid-shaped fix landed); round 4 showed
-the corruption is BINARY-dependent (miscompile #6) and bench.py grew a
-defensive acceptance test — if the GMG-preconditioned solve comes back
-non-finite OR with blown-up iteration counts, rebuild with the gather-based
-SA-AMG hierarchy and re-solve. Since round 5 the 3D production path is the
-ELL/cm-shaped geometric cycle (gmg.build_lattice_ell); these tests poison
-that cycle on CPU and assert the fallback produces a finite, converged
-record. Mirrors the MUMPS-grade reliability bar of the reference's only
-solver configuration (/root/reference/src/main.F90:354-390).
+bench.bench_amg_solve acceptance-tests its geometric cycle (miscompiles #5
+and #6 in DESIGN.md once corrupted such cycles): if the GMG-preconditioned
+solve comes back non-finite OR with blown-up iteration counts, it rebuilds
+with the gather-based SA-AMG hierarchy and re-solves. The bench's lattice
+path is the grid-state geometric cycle (gmg.build_lattice), with SA-AMG
+when that declines; these tests poison the cycle on CPU and assert the
+fallback produces a finite, converged record. Mirrors the MUMPS-grade reliability bar of the
+reference's only solver configuration (main.F90:354-390).
 """
 
 import os
@@ -28,18 +26,17 @@ def test_gmg_nonfinite_triggers_sa_fallback(monkeypatch):
     import bench
     from fem_tpu.solver import gmg
 
-    monkeypatch.setenv("FEM_TPU_BENCH_NO_RECORD", "1")
     # keep the env from redirecting the mesh size
     monkeypatch.delenv("FEM_TPU_BENCH_AMG_N", raising=False)
 
-    real_v_ell = gmg.v_cycle_ell
+    real_v_g = gmg.v_cycle_g
 
-    def poisoned_v_ell(h, mv, r):
+    def poisoned_v_g(h, mv, r):
         # models miscompile #6: the compiled cycle silently produces
         # garbage while every standalone piece is exact
-        return real_v_ell(h, mv, r) * jnp.nan
+        return real_v_g(h, mv, r) * jnp.nan
 
-    monkeypatch.setattr(gmg, "v_cycle_ell", poisoned_v_ell)
+    monkeypatch.setattr(gmg, "v_cycle_g", poisoned_v_g)
 
     rec = bench.bench_amg_solve(n=8)
 
@@ -51,12 +48,11 @@ def test_gmg_nonfinite_triggers_sa_fallback(monkeypatch):
 def test_gmg_finite_keeps_gmg(monkeypatch):
     import bench
 
-    monkeypatch.setenv("FEM_TPU_BENCH_NO_RECORD", "1")
     monkeypatch.delenv("FEM_TPU_BENCH_AMG_N", raising=False)
 
     rec = bench.bench_amg_solve(n=8)
 
-    assert rec["precond"] == "gmg-ell"
+    assert rec["precond"] == "gmg"
     assert np.isfinite(rec["rel_residual"])
     assert rec["rel_residual"] <= 1e-8
 
@@ -71,10 +67,9 @@ def test_gmg_degraded_convergence_triggers_sa_fallback(monkeypatch):
     import bench
     from fem_tpu.solver import gmg
 
-    monkeypatch.setenv("FEM_TPU_BENCH_NO_RECORD", "1")
     monkeypatch.delenv("FEM_TPU_BENCH_AMG_N", raising=False)
 
-    monkeypatch.setattr(gmg, "v_cycle_ell", lambda h, mv, r: r)
+    monkeypatch.setattr(gmg, "v_cycle_g", lambda h, mv, r: r)
 
     rec = bench.bench_amg_solve(n=8)
 
@@ -83,17 +78,17 @@ def test_gmg_degraded_convergence_triggers_sa_fallback(monkeypatch):
     assert rec["rel_residual"] <= 1e-8
 
 
-def test_force_gmg_uses_grid_cycle(monkeypatch):
-    """FEM_TPU_FORCE_GMG=1 opts 3D back into the grid-state cycle (the
-    experimental path; bench still acceptance-tests it)."""
+def test_sa_when_grid_hierarchy_declines(monkeypatch):
+    """When gmg.build_lattice declines, the bench preconditions with
+    SA-AMG from the start."""
     import bench
+    from fem_tpu.solver import gmg
 
-    monkeypatch.setenv("FEM_TPU_BENCH_NO_RECORD", "1")
-    monkeypatch.setenv("FEM_TPU_FORCE_GMG", "1")
+    monkeypatch.setattr(gmg, "build_lattice", lambda *a, **k: None)
     monkeypatch.delenv("FEM_TPU_BENCH_AMG_N", raising=False)
 
     rec = bench.bench_amg_solve(n=8)
 
-    assert rec["precond"] == "gmg"
+    assert rec["precond"] == "sa-amg"
     assert np.isfinite(rec["rel_residual"])
     assert rec["rel_residual"] <= 1e-8

@@ -1,14 +1,12 @@
-"""Dryrun-counted ICI traffic: the DESIGN.md §5b communication model.
+"""Dryrun-counted interconnect traffic: the DESIGN.md §5b communication model.
 
-Real multi-chip hardware cannot be attached in this environment, so the
-per-iteration communication model (bytes over ICI per fine-operator apply
-as a function of mesh size and device count) is validated by COUNTING the
-collectives in the traced programs on the 8-way virtual CPU mesh: walk the
-jaxpr of each production sharded matvec, collect every ppermute/psum and
-its operand bytes, and assert both the count and the byte total equal the
-closed-form model. This is the honest substitute for an on-hardware
-profile, and makes the first real multi-chip run predictable (VERDICT r3
-next #8; comm-site inventory per SURVEY.md §2c).
+The per-iteration communication model (bytes over the interconnect per
+fine-operator apply as a function of mesh size and device count) is
+validated by COUNTING the collectives in the traced programs on the 8-way
+virtual CPU mesh: walk the jaxpr of each production sharded matvec, collect
+every ppermute/psum and its operand bytes, and assert both the count and
+the byte total equal the closed-form model. A trace of a run on several devices measures the
+time; this pins the bytes (comm-site inventory per SURVEY.md §2c).
 
 Model (3D lattice, n cells/side, p=pdim dofs/node, d devices, itemsize w):
   plane_bytes = (n+1)^2 * p * w                    (one boundary node plane)
@@ -17,7 +15,7 @@ Model (3D lattice, n cells/side, p=pdim dofs/node, d devices, itemsize w):
   general halo-gather (halo_gather.matvec_cm_sharded):
                       4 * B * p * w / apply        (B = slab-order reach)
   element-DP psum    (parallel/ops.ShardedOperator): one full-vector
-                      all-reduce, ndof * w operand (ring cost on ICI is
+                      all-reduce, ndof * w operand (ring cost is
                       2*(d-1)/d of that per device).
 """
 

@@ -1,13 +1,10 @@
-"""TPU-safe dense solves: mixed-precision LU + IR, penalty-robust null pivots.
+"""Dense f64 solves with penalty rows, and penalty-robust null pivots.
 
-Found live on the chip (round 3): (a) XLA's LuDecomposition has no f64 TPU
-lowering, so any traced f64 jnp.linalg.solve fails to compile — the golden
-cohesive deck could not run on the TPU at all; (b) robust_solve's null-pivot
-threshold used max(row_scale), which the 1e30 penalty-BC diagonal dominates,
-flagging every PHYSICAL row as null (delta ~ 0, Newton stalls). MUMPS
-equilibrates before null-pivot detection (main.F90:365-371), so the
-reference never sees either failure. These tests exercise the mixed path
-(mixed=True) on CPU and pin the penalty/eliminate physics agreement.
+robust_solve's null-pivot threshold once used max(row_scale), which the 1e30
+penalty-BC diagonal dominates, flagging every PHYSICAL row as null
+(delta ~ 0, Newton stalls). MUMPS equilibrates before null-pivot detection
+(main.F90:365-371), so the reference never sees that failure. These tests
+pin the f64 dense solves and the penalty/eliminate physics agreement.
 """
 
 import jax.numpy as jnp
@@ -34,32 +31,21 @@ def _penalty_system(n=40, nbc=6, seed=0):
     return Kp, rhs, x_true
 
 
-def test_solve_in_jit_mixed_matches_f64_with_penalty_rows():
+def test_dense_solve_with_penalty_rows_is_f64_exact():
+    """The f64 dense solve keeps f64 accuracy with 1e30 penalty rows."""
     Kp, rhs, x_true = _penalty_system()
-    x = direct.solve_in_jit(
-        jnp.asarray(Kp, dtype=jnp.float64),
-        jnp.asarray(rhs, dtype=jnp.float64),
-        mixed=True,
-    )
+    x = direct.solve(jnp.asarray(Kp, dtype=jnp.float64),
+                     jnp.asarray(rhs, dtype=jnp.float64))
     rel = np.linalg.norm(np.asarray(x) - x_true) / np.linalg.norm(x_true)
     assert rel < 1e-12
 
 
-def test_solve_in_jit_cpu_path_is_plain_solve():
-    Kp, rhs, _ = _penalty_system()
-    a = direct.solve_in_jit(jnp.asarray(Kp), jnp.asarray(rhs), mixed=False)
-    b = jnp.linalg.solve(jnp.asarray(Kp), jnp.asarray(rhs))
-    assert np.array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_inv_in_jit_mixed_batched():
-    rng = np.random.default_rng(1)
-    A = rng.standard_normal((17, 6, 6))
-    A = A @ np.swapaxes(A, -1, -2) + 6.0 * np.eye(6)
-    A *= 1e6  # away from unit scale to exercise the equilibration
-    X = direct.inv_in_jit(jnp.asarray(A, dtype=jnp.float64), mixed=True)
-    err = np.max(np.abs(np.asarray(X) @ A - np.eye(6)))
-    assert err < 1e-10
+def test_factorized_solve_matches_dense_solve():
+    Kp, rhs, _ = _penalty_system(seed=2)
+    K, F = jnp.asarray(Kp), jnp.asarray(rhs)
+    a = direct.solve_factorized(direct.factorize(K), F)
+    b = direct.solve(K, F)
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12)
 
 
 def test_robust_solve_penalty_rows_not_flagged_null():
@@ -76,9 +62,9 @@ def test_robust_solve_penalty_rows_not_flagged_null():
 
 def test_norm_safe_overflow_and_agreement():
     """_norm_safe must survive entries whose square overflows the dtype's
-    exponent range. On the TPU the emulated f64 carries only the f32
-    exponent (~1e38), so penalty-row residuals ~1e30 overflow a plain
-    jnp.linalg.norm; CPU f64 reproduces the effect at 1e300."""
+    exponent range. An f64 emulated with an f32 exponent (~1e38) overflows
+    a plain jnp.linalg.norm on penalty-row residuals ~1e30; native f64
+    reproduces the effect at 1e300."""
     x = jnp.asarray([1e300, -3e300, 2e299], dtype=jnp.float64)
     plain = jnp.linalg.norm(x)
     assert not bool(jnp.isfinite(plain))  # the failure mode being fixed

@@ -1,8 +1,8 @@
 """Geometric lattice block multigrid (solver/gmg.py).
 
 Covers the same MUMPS role as solver/amg.py
-(/root/reference/src/main.F90:354-390) on lattice-TOPOLOGY meshes; these
-tests pin the properties the TPU V-cycle relies on:
+(main.F90:354-390) on lattice-TOPOLOGY meshes; these tests pin the
+properties the device V-cycle relies on:
 
   - device prolong_g/restrict_g are EXACTLY the scipy P / P^T used for the
     host Galerkin RAP (adjoint pair, even and odd axis sizes);
@@ -265,114 +265,6 @@ def test_stepper_linear_amg_branch_prefers_gmg():
         del os.environ["FEM_TPU_GMG_MIN"]
 
 
-# ---------------- ELL/cm-shaped cycle (miscompile-#6 remedy) ----------------
-
-
-def test_v_cycle_ell_matches_v_cycle_g():
-    """The ELL/cm cycle is the SAME mathematical V-cycle as the grid cycle
-    (same host P/RAP/Chebyshev), only the program shape differs — the two
-    must agree to round-off on CPU (where grid programs execute exactly)."""
-    s, A, dims = _jittered(6)
-    hg = gmg.build_lattice(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                           dtype=jnp.float64)
-    he = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                               dtype=jnp.float64)
-    assert he is not None and len(he.levels) == len(hg.levels)
-    op_f = bs.build(amg._eliminate_bcs(A.tocsr(), np.asarray(s.bc_dofs)),
-                    s.pdim, dims, dtype=jnp.float64)
-    rng = np.random.default_rng(3)
-    r_cm = jnp.asarray(rng.standard_normal((s.pdim, s.nnds)))
-
-    z_e = gmg.v_cycle_ell(he, lambda v: bs.matvec_cm(op_f, v), r_cm)
-    z_g = gmg.v_cycle_g(hg, lambda v: bs.matvec_g(op_f, v),
-                        r_cm.reshape((s.pdim,) + tuple(dims)))
-    np.testing.assert_allclose(np.asarray(z_e),
-                               np.asarray(z_g).reshape(s.pdim, -1),
-                               rtol=1e-9, atol=1e-11)
-
-
-def _pcg_counts_ell(s, A, dims, rtol=1e-9):
-    bc_mask = jnp.zeros(s.ndof, bool).at[s.bc_dofs].set(True)
-    fop = op_mod.build(s)
-    Amv = cg.masked_operator(lambda v: op_mod.matvec(fop, v), bc_mask)
-    b0 = np.asarray(s.rhs(0.0))
-    if np.linalg.norm(b0) == 0.0:
-        b0 = np.random.default_rng(0).standard_normal(s.ndof)
-    b = jnp.where(bc_mask, 0.0, jnp.asarray(b0))
-    h = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                              dtype=jnp.float64)
-    assert h is not None
-
-    def mv_cm(v):
-        return Amv(v.T.reshape(-1)).reshape(-1, s.pdim).T
-
-    def pc(r):
-        r_cm = r.reshape(-1, s.pdim).T
-        return gmg.v_cycle_ell(h, mv_cm, r_cm).T.reshape(-1)
-
-    res = cg.pcg(Amv, b, rtol=rtol, maxiter=400, precond=pc)
-    bn = float(jnp.linalg.norm(b))
-    assert float(res.resnorm) <= rtol * bn
-    return int(res.iters), Amv, b, pc
-
-
-def test_gmg_ell_converges_jittered_box():
-    s, A, dims = _jittered(8)
-    iters, _, _, _ = _pcg_counts_ell(s, A, dims)
-    assert iters <= 25
-
-
-def test_gmg_ell_preconditioner_is_symmetric():
-    s, A, dims = _jittered(6)
-    _, Amv, b, pc = _pcg_counts_ell(s, A, dims)
-    rng = np.random.default_rng(2)
-    u = jnp.asarray(rng.standard_normal(s.ndof))
-    v = jnp.asarray(rng.standard_normal(s.ndof))
-    left = float(jnp.dot(pc(u), v))
-    right = float(jnp.dot(u, pc(v)))
-    assert abs(left - right) < 1e-8 * (abs(left) + abs(right) + 1e-30)
-
-
-def test_gmg_ell_bf16_preconditioner_converges():
-    """bf16-WEIGHTS preconditioner cycle (tools/bf16pc_ab.py): casting the
-    hierarchy + the fine smoothing operator to bfloat16 halves the
-    dominant HBM traffic of the GMG-ELL iteration (the 27*pdim^2
-    coefficient blocks stream 4x per CG iteration). The rounded cycle is
-    still a valid preconditioner — convergence must hold at near-identical
-    iteration counts (the on-chip A/B at 527k dofs matched f32 exactly).
-    The CG operator itself stays full precision: IR contraction goes like
-    kappa * operator rounding, so only M^-1 may be cast."""
-    s, A, dims = _jittered(8)
-    iters_f32, Amv, b, _ = _pcg_counts_ell(s, A, dims)
-    h = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                              dtype=jnp.float32)
-    h_lo = h.astype(jnp.bfloat16)
-    op_lo = bs.build(amg._eliminate_bcs(A.tocsr(), np.asarray(s.bc_dofs)),
-                     s.pdim, dims, dtype=jnp.float32).astype(jnp.bfloat16)
-
-    def pc_lo(r):
-        r_cm = r.reshape(-1, s.pdim).T.astype(jnp.bfloat16)
-        z = gmg.v_cycle_ell(h_lo, lambda v: bs.matvec_cm(op_lo, v), r_cm)
-        return z.astype(r.dtype).T.reshape(-1)
-
-    res = cg.pcg(Amv, b, rtol=1e-9, maxiter=400, precond=pc_lo)
-    bn = float(jnp.linalg.norm(b))
-    assert float(res.resnorm) <= 1e-9 * bn
-    assert int(res.iters) <= iters_f32 + 10
-
-
-def test_gmg_ell_semi_coarsens_anisotropic_deck():
-    """build_lattice_ell shares the strength-guided semi-coarsening logic;
-    the anisotropic cantilever deck must still converge in SA-class
-    counts."""
-    p = meshgen.hex_box_problem(8, 8, 8, jitter=0.25)  # default lx=10
-    s = System(p, dtype=jnp.float64)
-    A = amg.assemble_csr(s)
-    dims = bs.detect(A, s.pdim, s.nnds)
-    iters, _, _, _ = _pcg_counts_ell(s, A, dims, rtol=1e-9)
-    assert iters <= 40
-
-
 def test_stepper_demotes_poisoned_gmg(monkeypatch):
     """Production acceptance demotion (VERDICT r4 #3): a 2D lattice deck
     whose compiled grid V-cycle is corrupt (modeled by a NaN poison — the
@@ -403,75 +295,19 @@ def test_stepper_demotes_poisoned_gmg(monkeypatch):
     assert np.linalg.norm(r.aggregate_u - r_dir.aggregate_u) < 1e-7 * nu
 
 
-def test_stepper_demotes_poisoned_gmg_ell(monkeypatch):
-    """Same bar for the 3D production path: force the ELL/cm cycle (as on
-    TPU, where build_lattice declines 3D) and poison it — the stepper must
-    demote to SA and still match the direct solve."""
+def test_stepper_takes_sa_when_lattice_declines(monkeypatch):
+    """When build_lattice gives no hierarchy the stepper preconditions with
+    SA-AMG and still matches the direct solve."""
     from fem_tpu.config import Config
     from fem_tpu.solver import stepper
 
     p = meshgen.hex_box_problem(5, 5, 5, jitter=0.25)
     monkeypatch.setenv("FEM_TPU_GMG_MIN", "1")
-    monkeypatch.setattr(gmg, "build_lattice",
-                        lambda *a, **k: None)  # the 3D-TPU decline
-    real_v = gmg.v_cycle_ell
-    monkeypatch.setattr(gmg, "v_cycle_ell",
-                        lambda h, mv, r: real_v(h, mv, r) * jnp.nan)
+    monkeypatch.setattr(gmg, "build_lattice", lambda *a, **k: None)
     msgs = []
     r = stepper.run(p, Config(solver="cg", precond="amg"), log=msgs.append)
-    assert any("ELL/cm cycle" in m for m in msgs)
-    assert any("SA-AMG demotion" in m for m in msgs)
+    assert not any("Geometric lattice-MG" in m for m in msgs)
+    assert any("AMG preconditioner" in m for m in msgs)
     r_dir = stepper.run(p, Config(solver="direct"))
     nu = np.linalg.norm(r_dir.aggregate_u)
     assert np.linalg.norm(r.aggregate_u - r_dir.aggregate_u) < 1e-7 * nu
-
-
-def test_ell_matmul_transfers_match_gather():
-    """transfer='matmul' (per-axis dense kron contractions on the MXU)
-    must be the SAME map as the gather tables — both are Pn; only the
-    program shape differs."""
-    for dims_args in [((6, 6, 6), 0.25), ((8, 8, 8), 0.25)]:
-        n = dims_args[0][0]
-        s, A, dims = _jittered(n)
-        hg_ = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                                    dtype=jnp.float64, transfer="gather")
-        hm_ = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                                    dtype=jnp.float64, transfer="matmul")
-        rng = np.random.default_rng(0)
-        for lg, lm in zip(hg_.levels, hm_.levels):
-            nf = lg.dinv_cm.shape[1]
-            nc = lg.rt_vals.shape[1]
-            r = jnp.asarray(rng.standard_normal((s.pdim, nf)))
-            xc = jnp.asarray(rng.standard_normal((s.pdim, nc)))
-            np.testing.assert_allclose(
-                np.asarray(gmg.restrict_cm(lm, r)),
-                np.asarray(gmg.restrict_cm(lg, r)), rtol=1e-12, atol=1e-13)
-            np.testing.assert_allclose(
-                np.asarray(gmg.prolong_cm(lm, xc)),
-                np.asarray(gmg.prolong_cm(lg, xc)), rtol=1e-12, atol=1e-13)
-
-
-def test_ell_matmul_semi_coarsen_transfers_match_gather():
-    """Identity (uncoarsened) axes must pass through the matmul path
-    unchanged — the anisotropic deck semi-coarsens axis 0."""
-    p = meshgen.hex_box_problem(8, 8, 8, jitter=0.25)  # lx=10 anisotropic
-    s = System(p, dtype=jnp.float64)
-    A = amg.assemble_csr(s)
-    dims = bs.detect(A, s.pdim, s.nnds)
-    hg_ = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                                dtype=jnp.float64, transfer="gather")
-    hm_ = gmg.build_lattice_ell(A, s.pdim, dims, bc_dofs=s.bc_dofs,
-                                dtype=jnp.float64, transfer="matmul")
-    assert any(P is None for P in hm_.levels[0].ax_p)  # semi-coarsened
-    rng = np.random.default_rng(1)
-    for lg, lm in zip(hg_.levels, hm_.levels):
-        nf = lg.dinv_cm.shape[1]
-        nc = lg.rt_vals.shape[1]
-        r = jnp.asarray(rng.standard_normal((s.pdim, nf)))
-        xc = jnp.asarray(rng.standard_normal((s.pdim, nc)))
-        np.testing.assert_allclose(
-            np.asarray(gmg.restrict_cm(lm, r)),
-            np.asarray(gmg.restrict_cm(lg, r)), rtol=1e-12, atol=1e-13)
-        np.testing.assert_allclose(
-            np.asarray(gmg.prolong_cm(lm, xc)),
-            np.asarray(gmg.prolong_cm(lg, xc)), rtol=1e-12, atol=1e-13)

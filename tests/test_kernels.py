@@ -286,10 +286,9 @@ def test_cohesive_quirks_mode_last_ip_only():
 
 
 @pytest.mark.parametrize("name", ["hex", "qua"])
-def test_stiffness_batchlast_v2_matches_v1(name):
-    """The MXU-Jacobian / single-reciprocal batch-last kernel
-    (element_stiffness_lame_batchlast_v2) is algebraically identical to
-    both batch-last v1 and the batch-first reference-path kernel."""
+def test_stiffness_batchlast_matches_batch_first(name):
+    """The batch-last kernel (element_stiffness_lame_batchlast) is
+    algebraically identical to the batch-first reference-path kernel."""
     et = elements.get(name)
     rng = np.random.default_rng(7)
     ne = 48
@@ -304,25 +303,35 @@ def test_stiffness_batchlast_v2_matches_v1(name):
     mu = jnp.asarray(rng.uniform(0.5, 1.5, ne))
     k_ref = stiffness.element_stiffness_lame(et, jnp.asarray(ec), lam, mu)
     ecl = jnp.asarray(ec.transpose(2, 1, 0))
-    for fn in (stiffness.element_stiffness_lame_batchlast,
-               stiffness.element_stiffness_lame_batchlast_v2):
-        kg = np.asarray(fn(et, ecl, lam, mu))
-        kb = kg.transpose(4, 0, 1, 2, 3).reshape(ne, et.ndof, et.ndof)
-        np.testing.assert_allclose(
-            kb, np.asarray(k_ref), rtol=1e-12,
-            atol=1e-12 * np.abs(np.asarray(k_ref)).max())
+    kg = np.asarray(stiffness.element_stiffness_lame_batchlast(
+        et, ecl, lam, mu))
+    kb = kg.transpose(4, 0, 1, 2, 3).reshape(ne, et.ndof, et.ndof)
+    np.testing.assert_allclose(
+        kb, np.asarray(k_ref), rtol=1e-12,
+        atol=1e-12 * np.abs(np.asarray(k_ref)).max())
 
 
-def test_direct_f64_routes_to_cpu_backend():
-    """TPU XLA implements LuDecomposition only for f32/c64; the f64 dense
-    direct path must factorize on the host CPU backend (the CLI crashed on
-    the TPU box otherwise). On a CPU-only test run _lu_device is None —
-    assert the dispatch logic directly."""
-    from fem_tpu.solver import direct
-
-    assert direct._lu_device(jnp.float32) is None
-    # on the CPU backend f64 needs no rerouting
+def test_direct_f64_routes_to_cpu_backend(monkeypatch):
+    """The f64 dense direct path no longer routes to the CPU backend: with
+    the default backend reported as a GPU, factorize/solve make no device
+    transfers and stay f64-exact (cuSOLVER has native f64 LU)."""
     import jax
 
-    if jax.default_backend() == "cpu":
-        assert direct._lu_device(jnp.float64) is None
+    from fem_tpu.solver import direct
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    puts = []
+    monkeypatch.setattr(jax, "device_put",
+                        lambda *a, **k: puts.append(a) or a[0])
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((12, 12)) + 12.0 * np.eye(12)
+    b = rng.standard_normal(12)
+    K, F = jnp.asarray(A, jnp.float64), jnp.asarray(b, jnp.float64)
+    x1 = direct.solve_factorized(direct.factorize(K), F)
+    x2 = direct.solve(K, F)
+    assert puts == []
+    assert x1.dtype == jnp.float64 and x2.dtype == jnp.float64
+    np.testing.assert_allclose(np.asarray(x1), np.linalg.solve(A, b),
+                               rtol=1e-12)
+    np.testing.assert_allclose(np.asarray(x2), np.linalg.solve(A, b),
+                               rtol=1e-12)

@@ -11,9 +11,14 @@ from fem_tpu.io import inp, meshgen, native
 
 from tests.deckpaths import REF
 
-needs_native = pytest.mark.skipif(
-    not native.available(), reason="native engine not built (make -C native)"
-)
+@pytest.fixture
+def built_native():
+    """Build the engine on first use; decided per test, never at import."""
+    if not native.available():
+        pytest.skip("native engine cannot be built (make -C native)")
+
+
+needs_native = pytest.mark.usefixtures("built_native")
 
 DECKS = [
     f"{REF}/SNES_test/elastic/elastic_test.inp",

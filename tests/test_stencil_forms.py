@@ -1,9 +1,9 @@
 """Equivalence of the stencil-operator matvec formulations.
 
-matvec (matmul form), matvec_planes (fused 27/9-point component-planes
-stencil) and matvec_pairs (corner-pair slice form) are three schedules of
-the same operator (m_local.F90:21-67 discretization on a box grid); they
-must agree to round-off so the fastest can be chosen per backend.
+matvec (matmul form, the solvers' schedule), matvec_planes (fused
+27/9-point component-planes stencil) and matvec_pairs (corner-pair slice
+form) are three schedules of the same operator (m_local.F90:21-67
+discretization on a box grid); they must agree to round-off.
 """
 
 import jax.numpy as jnp
@@ -26,11 +26,9 @@ def test_matvec_forms_agree(shape, cells):
     f0 = structured.matvec(op, u)
     f1 = structured.matvec_planes(op, u)
     f2 = structured.matvec_pairs(op, u)
-    f3 = structured.matvec_planes27(op, u)
     nrm = float(jnp.linalg.norm(f0))
     assert float(jnp.linalg.norm(f1 - f0)) < 1e-12 * nrm
     assert float(jnp.linalg.norm(f2 - f0)) < 1e-12 * nrm
-    assert float(jnp.linalg.norm(f3 - f0)) < 1e-12 * nrm
 
 
 @pytest.mark.parametrize(
@@ -40,17 +38,18 @@ def test_matvec_forms_agree(shape, cells):
      ((3, 3), (0.5, 0.5)),
      ((12, 9), (0.3, 0.2))],
 )
-def test_matvec_planes27_boundaries(shape, cells):
-    """planes27's face-paste must be exact on edges/corners (nodes on
-    several faces at once) and on grids where no interior exists."""
+def test_matvec_planes_boundaries(shape, cells):
+    """The planes form's per-corner cell masks must be exact on edges and
+    corners (nodes on several faces at once) and on grids where no
+    interior exists."""
     lam, mu = lame(jnp.asarray(70e9), jnp.asarray(0.25))
     op = structured.build(cells, shape, lam, mu)
     rng = np.random.default_rng(7)
     u = jnp.asarray(rng.standard_normal(op.ndof))
-    f0 = structured.matvec_matmul(op, u)
-    f3 = structured.matvec_planes27(op, u)
+    f0 = structured.matvec(op, u)
+    f1 = structured.matvec_planes(op, u)
     nrm = float(jnp.linalg.norm(f0))
-    assert float(jnp.linalg.norm(f3 - f0)) < 1e-12 * nrm
+    assert float(jnp.linalg.norm(f1 - f0)) < 1e-12 * nrm
 
 
 def test_matvec_pairs_heterogeneous():
